@@ -32,6 +32,13 @@ from repro_torch.kernels import ops
 _TINY = 1e-30
 
 
+def _final_freq(freq: intra.FreqFn | None, svc: ServiceSet,
+                b: torch.Tensor, inner_iters: int) -> torch.Tensor:
+    """f*(b) through ``freq`` (an intra backend's solver), or the plain
+    ``intra.freq`` when none is given."""
+    return intra.freq(svc, b, inner_iters) if freq is None else freq(svc, b)
+
+
 class DisbaResult(NamedTuple):
     b: torch.Tensor           # (N,) allocated bandwidth
     f: torch.Tensor           # (N,) resulting FL frequency
@@ -165,9 +172,10 @@ def solve_lambda_bisect(
     total_bandwidth: float,
     iters: int = BISECT_ITERS,
     inner_iters: int = BISECT_ITERS,
+    freq: intra.FreqFn | None = None,
 ) -> DisbaResult:
     """Root of D(lam) - B on (0, max_n p_max) by bisection: D is strictly
-    decreasing."""
+    decreasing.  The final f*(b) goes through ``freq`` when given."""
     lam_hi = torch.amax(intra.p_max(svc))
 
     def h(lam):
@@ -176,7 +184,7 @@ def solve_lambda_bisect(
     lam = intra._bisect(h, torch.zeros_like(lam_hi), lam_hi, iters)
     b = _project(intra.demand(svc, lam, inner_iters), total_bandwidth)
     return DisbaResult(
-        b=b, f=intra.freq(svc, b, inner_iters), lam=lam,
+        b=b, f=_final_freq(freq, svc, b, inner_iters), lam=lam,
         iterations=_scalar(iters, svc, torch.int32),
         converged=_scalar(True, svc, torch.bool),
     )
@@ -253,6 +261,7 @@ def solve_lambda_newton_warm(
     inner_iters: int = BISECT_ITERS,
     newton_inner_iters: int = WARM_INNER_ITERS,
     backend: str = "reference",
+    freq: intra.FreqFn | None = None,
 ) -> DisbaResult:
     """Safeguarded Newton on D(lam) - B = 0, seeded from ``lam_prev``.
 
@@ -260,7 +269,9 @@ def solve_lambda_newton_warm(
     (the ``WARM_COLD`` sentinel) or a seed at/above the bracket top starts
     from the midpoint.  ``backend``: ``"reference"`` (PyTorch ops),
     ``"pallas"`` (one ``dual_demand`` kernel launch per trip) or
-    ``"megakernel"`` (the whole solve as one ``market_clear`` launch).
+    ``"megakernel"`` (the whole solve as one ``market_clear`` launch, which
+    also emits f).  Otherwise the final f*(b) goes through ``freq`` when
+    given, else ``intra.freq``.
 
     Non-finite hardening: NaN/Inf in the masked-in service tensors, a
     non-finite seed, or a non-finite result triggers a cold-bisection rescue
@@ -297,7 +308,7 @@ def solve_lambda_newton_warm(
         else:
             _, _, b = _demand_slope_backend(svc, lam, inner_iters, backend)
         b = _project(b, total_bandwidth)
-        f = intra.freq(svc, b, inner_iters)
+        f = _final_freq(freq, svc, b, inner_iters)
 
     out_finite = torch.logical_and(
         torch.isfinite(lam),

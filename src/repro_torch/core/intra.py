@@ -13,12 +13,18 @@ PyTorch oracle of the ``bisect_alloc`` and ``dual_demand`` kernels.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from repro_torch.core.types import BISECT_ITERS, ServiceSet
 
 _TINY = 1e-30
 _F_CEIL = 1.0 - 1e-6  # stay strictly inside the 1 - tC*f > 0 region
+
+# An f*(b) solver, (ServiceSet, b (N,)) -> f (N,): ``freq`` below, or a
+# kernel backend's (``policy.freq_fn``).
+FreqFn = Callable[[ServiceSet, torch.Tensor], torch.Tensor]
 
 
 def _bisect(fn, lo, hi, iters: int = BISECT_ITERS):

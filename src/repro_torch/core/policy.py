@@ -37,8 +37,6 @@ from repro_torch.kernels import ops
 
 INTRA_BACKENDS = ("reference", "pallas", "megakernel")
 
-FreqFn = Callable[[ServiceSet, torch.Tensor], torch.Tensor]
-
 _NOT_PORTED = {"selfish": "the auction (core/auction.py, core/fairness.py and "
                           "the mbdf_demand kernel) is not yet ported"}
 
@@ -83,7 +81,8 @@ def _unknown_backend(intra_backend: str) -> ValueError:
                       f"expected one of {INTRA_BACKENDS}")
 
 
-def freq_fn(intra_backend: str = "reference", iters: int = BISECT_ITERS) -> FreqFn:
+def freq_fn(intra_backend: str = "reference",
+            iters: int = BISECT_ITERS) -> intra.FreqFn:
     """f*(b) with the chosen intra-service solver backend."""
     intra_backend = _intra_impl(intra_backend)
     if intra_backend == "reference":
@@ -270,11 +269,11 @@ def _coop(*, intra_backend: str = "reference", iters: int = BISECT_ITERS, **_):
                 svc, b_total, disba.WARM_COLD, iters=12, inner_iters=iters,
                 newton_inner_iters=iters, backend="megakernel")
             return res.b, res.f
-        res = disba.solve_lambda_bisect(svc, b_total, inner_iters=iters)
         # the dual solve is backend-independent; only the final f*(b)
         # evaluation goes through the selected intra backend
-        f = res.f if intra_backend == "reference" else _freq(svc, res.b)
-        return res.b, f
+        res = disba.solve_lambda_bisect(svc, b_total, inner_iters=iters,
+                                        freq=_freq)
+        return res.b, res.f
 
     return fn
 
@@ -311,18 +310,17 @@ def _coop_warm(*, intra_backend: str = "reference", iters: int = BISECT_ITERS,
             fallbacks=torch.tensor(0, dtype=torch.int32, device=device))
 
     def step(svc: ServiceSet, b_total, state):
+        # megakernel emits f from the same launch; the other backends
+        # evaluate the final f*(b) once, through the selected intra backend.
         res = disba.solve_lambda_newton_warm(
-            svc, b_total, state.lam, inner_iters=iters, backend=backend)
-        # megakernel emits f from the same launch; reference's res.f is
-        # already the reference evaluation.
-        f = (res.f if intra_backend in ("reference", "megakernel")
-             else _freq(svc, res.b))
+            svc, b_total, state.lam, inner_iters=iters, backend=backend,
+            freq=_freq)
         # Only carry the price out of periods that cleared a market.
         lam_next = torch.where(torch.any(svc.service_active()), res.lam,
                                state.lam)
         fallbacks = state.fallbacks + torch.as_tensor(
             res.fallback, dtype=torch.int32, device=svc.device)
-        return res.b, f, WarmDualState(lam=lam_next, fallbacks=fallbacks)
+        return res.b, res.f, WarmDualState(lam=lam_next, fallbacks=fallbacks)
 
     return StatefulPolicy(init_state=init_state, step=step)
 
@@ -343,10 +341,7 @@ def _es(*, intra_backend: str = "reference", iters: int = BISECT_ITERS, **_):
     _freq = freq_fn(intra_backend, iters)
 
     def fn(svc: ServiceSet, b_total):
-        b, f = baselines.equal_service(svc, b_total)
-        if intra_backend != "reference":
-            f = _freq(svc, b)
-        return b, f
+        return baselines.equal_service(svc, b_total, freq=_freq)
 
     return fn
 
@@ -357,9 +352,6 @@ def _pp(*, intra_backend: str = "reference", iters: int = BISECT_ITERS, **_):
     _freq = freq_fn(intra_backend, iters)
 
     def fn(svc: ServiceSet, b_total):
-        b, f = baselines.proportional(svc, b_total)
-        if intra_backend != "reference":
-            f = _freq(svc, b)
-        return b, f
+        return baselines.proportional(svc, b_total, freq=_freq)
 
     return fn

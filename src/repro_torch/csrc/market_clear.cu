@@ -207,21 +207,20 @@ extern "C" int market_clear_max_grid(int k) {
   return per_sm * sms;
 }
 
-// C entry, loaded with ctypes.  `scratch` holds `scratch_len` floats, at
-// least 4 per block of the grid.  Returns the launch's CUDA error code.
+// C entry, loaded with ctypes.  `max_grid` is market_clear_max_grid(k) on
+// this device, queried once by the caller, and `scratch` holds 4 * max_grid
+// floats.  Returns the launch's CUDA error code.
 extern "C" int market_clear_launch(const float* alpha, const float* tcomp,
                                    float b_total, const float* lam_prev,
                                    float* b, float* f, float* lam,
                                    float* scratch, int n, int k, int iters,
                                    int inner_iters, int newton_inner_iters,
-                                   int scratch_len, void* stream) {
+                                   int max_grid, void* stream) {
   using namespace repro;
   const void* fn = kernel_for(k);
-  const int max_grid = market_clear_max_grid(k);
   if (fn == nullptr || max_grid <= 0 || n < 1) return cudaErrorInvalidValue;
   int grid = (n + kClearWarps - 1) / kClearWarps;
   if (grid > max_grid) grid = max_grid;
-  if (4 * grid > scratch_len) return cudaErrorInvalidValue;
   void* args[] = {&alpha, &tcomp, &b_total, &lam_prev, &b, &f, &lam, &scratch,
                   &n, &k, &iters, &inner_iters, &newton_inner_iters};
   const cudaError_t err = cudaLaunchCooperativeKernel(

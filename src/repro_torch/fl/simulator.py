@@ -166,11 +166,12 @@ def _period_step(rounds_done, duration, chan_state, churn_state, pol_state,
             extras)
 
 
-def _summarize(cfg: SimConfig, rounds_done, duration, history: list[dict]
-               ) -> dict:
+def _summarize(cfg: SimConfig, rounds_done, duration, history: list[dict],
+               fallbacks: int) -> dict:
     """The summary ``repro.fl.simulator.run_scan`` returns, from the
     per-period stats of the periods that ran (up to and including the one in
-    which every service finished)."""
+    which every service finished), plus ``fallbacks``: in how many periods
+    the warm solver served its cold-bisection rescue."""
     duration = duration.cpu().numpy()
     finished = bool(np.all(rounds_done.cpu().numpy() >= cfg.rounds_required))
     out = {
@@ -179,6 +180,7 @@ def _summarize(cfg: SimConfig, rounds_done, duration, history: list[dict]
         "durations": [int(d) for d in duration],
         "periods": len(history),
         "finished": finished,
+        "fallbacks": fallbacks,
     }
     stacked = {k: torch.stack([h[k] for h in history]).cpu().numpy()
                for k in history[0] if k != "all_done"}
@@ -195,8 +197,8 @@ def run_scan(cfg: SimConfig, net: network.NetworkConfig | None = None, *,
              sampler: Callable[[int], ServiceSet] | None = None,
              device=None) -> dict:
     """Simulate one episode.  Returns avg_duration, std_duration, durations,
-    periods, finished, and the per-period history as stacked numpy arrays
-    (``totals`` instead when ``collect_history`` is False).
+    periods, finished, fallbacks, and the per-period history as stacked
+    numpy arrays (``totals`` instead when ``collect_history`` is False).
 
     ``arrivals``/``counts`` replace the episode-static draws with an explicit
     (n_services_total,) admission trace; ``avail`` adds a
@@ -263,4 +265,5 @@ def run_scan(cfg: SimConfig, net: network.NetworkConfig | None = None, *,
         history.append(stats)
         if bool(stats["all_done"]):
             break
-    return _summarize(cfg, rounds_done, duration, history)
+    return _summarize(cfg, rounds_done, duration, history,
+                      policy_mod.fallback_count(pol_state))

@@ -66,8 +66,8 @@ def bisect_alloc_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     """Launch the CUDA kernel on the current stream.  Inputs must already be
     validated (``ops.intra_allocate`` does it)."""
     n, k = alpha.shape
-    t_star = torch.empty((n,), dtype=torch.float32, device=alpha.device)
-    b_alloc = torch.empty((n, k), dtype=torch.float32, device=alpha.device)
+    buf = torch.empty((n * (k + 1),), dtype=torch.float32, device=alpha.device)
+    t_star, b_alloc = buf[:n], buf[n:].view(n, k)
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
     status = _lib()(alpha.data_ptr(), t_comp.data_ptr(), b.data_ptr(),
                     t_star.data_ptr(), b_alloc.data_ptr(), n, k, iters, stream)

@@ -87,8 +87,8 @@ def dual_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     (N,) float32 tensor on the same device; inputs must already be
     validated (``ops.dual_demand`` does it)."""
     n, k = alpha.shape
-    b = torch.empty((n,), dtype=torch.float32, device=alpha.device)
-    slope = torch.empty((n,), dtype=torch.float32, device=alpha.device)
+    buf = torch.empty((2 * n,), dtype=torch.float32, device=alpha.device)
+    b, slope = buf[:n], buf[n:]
     lam_stride = 0 if lam.ndim == 0 else 1
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
     status = _lib()(alpha.data_ptr(), t_comp.data_ptr(), lam.data_ptr(),

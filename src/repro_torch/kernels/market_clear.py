@@ -85,13 +85,15 @@ def _lib():
 
 
 @functools.cache
-def scratch_size(k: int) -> int:
-    """Floats of partial-sum scratch the kernel needs for K clients: two
-    double-buffered (demand, slope) pairs per co-resident block."""
-    max_grid = _lib()[1](k)
-    if max_grid <= 0:
-        raise RuntimeError(f"market_clear occupancy query failed ({max_grid})")
-    return 4 * max_grid
+def max_grid(k: int, device_index: int) -> int:
+    """The most co-resident blocks of the kernel for K clients on one
+    device: the cooperative launch's largest grid.  Queried once per
+    (K, device), not on every launch."""
+    with torch.cuda.device(device_index):
+        grid = _lib()[1](k)
+    if grid <= 0:
+        raise RuntimeError(f"market_clear occupancy query failed ({grid})")
+    return grid
 
 
 def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
@@ -104,15 +106,15 @@ def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     (``ops.market_clear`` does it)."""
     n, k = alpha.shape
     dev = alpha.device
-    b = torch.empty((n,), dtype=torch.float32, device=dev)
-    f = torch.empty((n,), dtype=torch.float32, device=dev)
-    lam = torch.empty((), dtype=torch.float32, device=dev)
-    scratch = torch.empty((scratch_size(k),), dtype=torch.float32, device=dev)
+    grid = max_grid(k, dev.index)
+    # One allocation: b, f, lam, then two double-buffered (demand, slope)
+    # partials per co-resident block of scratch.
+    buf = torch.empty((2 * n + 1 + 4 * grid,), dtype=torch.float32, device=dev)
+    b, f, lam = buf[:n], buf[n:2 * n], buf[2 * n]
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = _lib()[0](alpha.data_ptr(), t_comp.data_ptr(), float(b_total),
                        lam_prev.data_ptr(), b.data_ptr(), f.data_ptr(),
-                       lam.data_ptr(), scratch.data_ptr(), n, k, iters,
-                       inner_iters, newton_inner_iters, scratch.numel(),
-                       stream)
+                       lam.data_ptr(), buf[2 * n + 1:].data_ptr(), n, k, iters,
+                       inner_iters, newton_inner_iters, grid, stream)
     _build.check(status, "market_clear")
     return b, f, lam

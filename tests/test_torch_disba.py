@@ -17,7 +17,7 @@ from repro.core import network as j_network
 from repro.core import policy as j_policy
 from repro.core import types as j_types
 from repro_torch import interop
-from repro_torch.core import disba, policy
+from repro_torch.core import disba, intra, policy
 
 B = 10.0
 CPU = torch.device("cpu")
@@ -159,6 +159,30 @@ def test_warm_coop_step_and_carry_match(backend):
     carried = interop.warm_state_from_arrays(np.asarray(js.lam),
                                              np.asarray(js.fallbacks), device=CPU)
     assert float(carried.lam) == float(js.lam)
+
+
+@pytest.mark.parametrize("name,warm", [("coop", False), ("coop", True),
+                                       ("es", False), ("pp", False)])
+@pytest.mark.parametrize("backend", ["pallas", "megakernel"])
+def test_kernel_backends_never_evaluate_the_plain_freq(monkeypatch, name, warm,
+                                                       backend):
+    """On a kernel backend f*(b) is computed once, by that backend: the
+    plain ``intra.freq`` is never called, so no dead work runs beside the
+    kernel."""
+    j, t = _pair(10)
+
+    def plain_freq(*args, **kwargs):
+        raise AssertionError("the plain intra.freq ran on a kernel backend")
+
+    want_b, want_f = policy.get_policy(name, intra_backend=backend)(t, B)
+    pol = policy.get_stateful_policy(name, warm_start=warm,
+                                     intra_backend=backend)
+    monkeypatch.setattr(intra, "freq", plain_freq)
+    b, f, state = pol.step(t, B, pol.init_state(9, CPU))
+    assert policy.fallback_count(state) == 0
+    assert bool(torch.isfinite(f).all()) and bool((f[b > 0] > 0).all())
+    if not warm:
+        assert torch.equal(b, want_b) and torch.equal(f, want_f)
 
 
 def test_registry_options_and_unported_policy():

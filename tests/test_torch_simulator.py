@@ -64,6 +64,7 @@ def test_run_scan_matches_reference(reference_draws, name, warm, backend):
     assert got["durations"] == ref["durations"]
     assert got["periods"] == ref["periods"]
     assert got["finished"] == ref["finished"]
+    assert got["fallbacks"] == 0
     h, rh = got["history"], ref["history"]
     assert np.array_equal(h["active"], rh["active"])
     assert np.array_equal(h["rounds"], rh["rounds"])
