@@ -6,35 +6,53 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card: its name, and name and power limit from nvidia-smi;
-2. build the CUDA kernels from src/repro_torch/csrc (seconds printed);
+2. build the CUDA kernels from src/repro_torch/csrc (seconds printed; one
+   nvcc per source, all started together);
 3. every kernel against its plain PyTorch version on the card, at the
    market shape (N = 8192 services, K = 32 clients, first 10% inactive,
    sample_services on a generator seeded 5, warm seed = cold price x 1.03)
-   and a ragged shape (N = 8191, K = 45): largest deviation per output
-   (tolerances below), that every split row sums to its b, the kernel's
-   device time (CUDA events around one call queued behind a device sleep,
-   so the host's launch path is hidden; median of 21) with the profiler's
-   mean as a cross-check, the wrapper's and the plain version's time per
-   call (CUDA events, median of 21 calls, host launch path included), the
-   launches this phase made, and the bound (the larger of float32
-   operations over 67 TFLOP/s and bytes over 3.35 TB/s, counting about 5
-   operations per valid (row, client, trip));
-4. run_scan episodes at the paper's setting (SimConfig defaults), each with
-   a kernel backend and with "reference" on one sampler stream: per-period
-   rounds and durations equal (see compare_episodes for the one allowed
-   exception), per-period b and f within tolerance, no solver rescue, and
-   the kernels each backend launched (none for "reference");
-5. one market-scale episode: 8192 services all arriving at period 0 with
-   the paper's 1 MHz per service (B = 8192 MHz) and 100 rounds to finish,
-   so rounds per period are nonzero and durations differ between
-   services; warm coop on "megakernel" against "reference";
-6. the kernels line: per kernel, its launches during phases 4-5 (counts
-   reset just before phase 4), its deviation, times and bound.
+   and a ragged shape (N = 8191, K = 45); mbdf_demand on the prices of
+   uniform_truthful_bids (M = 5 at the market shape, M = 3 at the ragged
+   one) for alpha_fair 0, 0.5 and 1, its demands >= 0, non-increasing
+   along the price grid and 0 on inactive rows.  Per kernel: the largest
+   deviation per output (tolerances below), the kernel's device time
+   (CUDA events around one call queued behind a device sleep, so the
+   host's launch path is hidden; median of 21) with the profiler's mean
+   as a cross-check, the wrapper's and the plain version's time per call
+   (CUDA events, median of 21 calls, host launch path included), and the
+   bound (the larger of float32 operations over 67 TFLOP/s and bytes
+   over 3.35 TB/s, counting about 5 operations per valid (row, client,
+   trip), 6 for mbdf_demand's per price);
+4. the main paths, each driven with the launch counts set to 0 just
+   before it and read just after:
+   a. slice 1: run_scan episodes of coop (warm and cold), es, pp and ec
+      at the paper's setting (SimConfig defaults), each with a kernel
+      backend and with "reference" on one sampler stream, then a
+      market-scale warm coop episode on "megakernel": 8192 services all
+      arriving at period 0 with the paper's 1 MHz per service (B = 8192
+      MHz) and 100 rounds to finish, 10 periods;
+   b. selfish: the auction policy on "pallas" and "megakernel" at the
+      paper's setting, then the same market-scale episode on "pallas";
+   c. run_batch over 3 seeds with gauss_markov channels, gilbert churn
+      and mmpp arrivals, warm coop on "megakernel" against "reference";
+   per episode: rounds and durations equal (see compare_episodes for the
+   one allowed exception), per-period b and f within tolerance, no solver
+   rescue, and the kernels each backend launched (none for "reference");
+5. the auction entry on the card: run_auction at 8192 services, M = 5,
+   B = 8192 MHz (b sums to B, charges cover the fairness cost, the same
+   call on the CPU agrees), and charges(method="prefix") against "rerun"
+   at N = 256 (the rerun builds an (N, N*M) book);
+6. the kernels line: per kernel, its launches on the paths of phase 4
+   (summed), its deviation, times and bound.
 
 Tolerances are rtol and atol as in the CPU tests, but atol is never more
 than 1e-3 of the mean |value| of the output checked: at the market shape b
 is about 1e-3 and a client's split about 5e-5, where a fixed atol would
-check nothing.
+check nothing.  Charges get atol 1e-4 + 1e-6 of the book's welfare
+sum_j F_j(b_j): the prefix charge is a difference of two such sums.  An
+auction allocation gives each period's surplus to the services bidding at
+the clearing price, which absorb every other service's float deviation:
+see check_surplus_split.
 
 The last line is {"ok": true, "device": {...}}.  The script needs a CUDA
 card and the repository's src/ beside it, and fails without either.
@@ -54,20 +72,30 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+DEVICE = "cuda"
 B_TOTAL = 10.0
 PEAK_F32_OPS = 67e12      # H100 SXM float32 outside the tensor cores, op/s
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
 OPS_PER_CLIENT_TRIP = 5
+OPS_PER_CLIENT_TRIP_PRICE = 6   # mbdf_demand
 TOL = {"t_star": (1e-4, 0.0), "split": (1e-3, 1e-4), "b": (1e-3, 1e-4),
        "slope": (1e-3, 1e-4), "f": (1e-3, 1e-5), "lam": (1e-4, 0.0),
-       "split_sum": (1e-5, 0.0)}
+       "split_sum": (1e-5, 0.0), "demand": (1e-4, 1e-5),
+       "price": (1e-4, 0.0)}
 ATOL_OF_MEAN = 1e-3      # atol <= this fraction of the output's mean |value|
 SLEEP_CYCLES = 2_000_000  # device sleep queued ahead of a timed kernel call
 KERNELS = {
     "bisect_alloc": "src/repro/kernels/bisect_alloc.py:29",
     "dual_demand": "src/repro/kernels/dual_demand.py:94",
     "market_clear": "src/repro/kernels/market_clear.py:86",
+    "mbdf_demand": "src/repro/kernels/market_clear.py:204",
 }
+# Sizes (the phases above).
+KERNEL_SHAPES = ((8192, 32, 5), (8191, 45, 3))   # (N, K, M of mbdf_demand)
+MARKET_N = 8192
+PAPER = {}                   # SimConfig overrides of the paper's setting
+AUCTION_N, RERUN_N = 8192, 256
+BATCH_SEEDS = (0, 1, 2)
 
 
 def emit(obj) -> None:
@@ -131,20 +159,24 @@ def kernel_profiler_ms(fn, kernel: str, reps: int = 21) -> float:
     return rows[0].device_time_total / rows[0].count / 1e3
 
 
-def check_close(name: str, got, want, key: str) -> dict:
+def _np64(x) -> np.ndarray:
+    return np.asarray(x.detach().double().cpu().numpy()
+                      if torch.is_tensor(x) else x, np.float64)
+
+
+def check_close(name: str, got, want, key: str, atol=None) -> dict:
     """Raise unless |got - want| <= atol + rtol |want| everywhere, with
-    atol no more than ATOL_OF_MEAN of mean |want|; returns the largest
-    absolute deviation and the tolerance applied."""
-    rtol, atol = TOL[key]
-    got = np.asarray(got.detach().double().cpu().numpy()
-                     if torch.is_tensor(got) else got, np.float64)
-    want = np.asarray(want.detach().double().cpu().numpy()
-                      if torch.is_tensor(want) else want, np.float64)
+    atol no more than ATOL_OF_MEAN of mean |want| (unless given); returns
+    the largest absolute deviation and the tolerance applied."""
+    rtol, default_atol = TOL[key]
+    got, want = _np64(got), _np64(want)
     if got.shape != want.shape or not np.all(np.isfinite(got)):
         raise AssertionError(f"{name}/{key}: shape {got.shape} vs "
                              f"{want.shape} or non-finite values")
-    if want.size:
-        atol = min(atol, ATOL_OF_MEAN * float(np.mean(np.abs(want))))
+    if atol is None:
+        atol = default_atol
+        if want.size:
+            atol = min(atol, ATOL_OF_MEAN * float(np.mean(np.abs(want))))
     err = np.abs(got - want)
     bad = err > atol + rtol * np.abs(want)
     if bad.any():
@@ -152,6 +184,43 @@ def check_close(name: str, got, want, key: str) -> dict:
                              f"rtol {rtol} atol {atol}; max dev {err.max()}")
     return {"max_dev": float(err.max()) if err.size else 0.0,
             "rtol": rtol, "atol": atol}
+
+
+def check_surplus_split(name: str, got_b, want_b, got_f, want_f) -> dict:
+    """Hold an auction allocation (Eq. 26) to the reference one.  Each
+    period's surplus B - sum_j d_j(zeta+) goes to the few services bidding
+    exactly at the clearing price, so their b absorbs the summed deviation
+    of every other service's demand, which grows with N, and the float32
+    rounding of the period's aggregate demand, a fraction of an ulp of B
+    in each run.  So: b and f within TOL everywhere except at such
+    entries, and in every period the summed |deviation| of the entries
+    beyond TOL is at most that of the entries within it plus atol plus 2
+    ulps of the period's total; their f is then held by the rounds check
+    of compare_episodes."""
+    got_b, want_b = _np64(got_b), _np64(want_b)
+    got_f, want_f = _np64(got_f), _np64(want_f)
+    n = got_b.shape[-1]
+    rtol, atol = TOL["b"]
+    atol = min(atol, ATOL_OF_MEAN * float(np.mean(np.abs(want_b))))
+    err = np.abs(got_b - want_b)
+    out = err > atol + rtol * np.abs(want_b)
+    err2, out2 = err.reshape(-1, n), out.reshape(-1, n)
+    totals = np.abs(want_b).reshape(-1, n).sum(axis=1).astype(np.float32)
+    for row in np.flatnonzero(out2.any(axis=1)):
+        carried = float(err2[row][out2[row]].sum())
+        absorbed = (float(err2[row][~out2[row]].sum()) + atol
+                    + 2.0 * float(np.spacing(totals[row])))
+        if carried > absorbed:
+            raise AssertionError(
+                f"{name}/b: period {row} deviates by {carried} at "
+                f"{int(out2[row].sum())} services, more than the "
+                f"{absorbed} the others' demands account for")
+    keep = ~out
+    checks = {"b": check_close(name, got_b[keep], want_b[keep], "b"),
+              "f": check_close(name, got_f[keep], want_f[keep], "f")}
+    checks["b"]["surplus_entries"] = int(out.sum())
+    checks["b"]["surplus_max_dev"] = float(err[out].max()) if out.any() else 0.0
+    return checks
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -164,19 +233,27 @@ def market(n: int, k: int):
     from repro_torch.core import network
     from repro_torch.core.types import mask_inactive
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
     svc, _ = network.sample_services(gen, n, k_max=k)
     n_off = max(1, round(n * 0.1))
-    return mask_inactive(svc, torch.arange(n, device="cuda") >= n_off)
+    return mask_inactive(svc, torch.arange(n, device=DEVICE) >= n_off)
 
 
-def kernel_phase(n: int, k: int) -> dict:
+def time_row(name: str, kern, plain, work_ops: float, nbytes: float) -> dict:
+    bound_ms, bound_by = bound(work_ops, nbytes)
+    return {"ms": device_ms(kern), "profiler_ms": kernel_profiler_ms(kern, name),
+            "wrapper_ms": event_ms(kern), "plain_ms": event_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def kernel_phase(n: int, k: int, m: int) -> dict:
     """Phase 3 at one shape: every kernel against its plain version."""
-    from repro_torch.core import disba
+    from repro_torch.core import auction, disba
     from repro_torch.kernels import ops
     from repro_torch.kernels.bisect_alloc import bisect_alloc_plain
     from repro_torch.kernels.dual_demand import dual_demand_plain
-    from repro_torch.kernels.market_clear import market_clear_plain
+    from repro_torch.kernels.market_clear import (market_clear_plain,
+                                                  mbdf_demand_plain)
 
     svc = market(n, k)
     a, t = svc.alpha, svc.t_comp
@@ -218,29 +295,58 @@ def kernel_phase(n: int, k: int) -> dict:
         if name == "market_clear":
             checks["b_total"] = check_close(tag, got[0].sum(),
                                             torch.tensor(B_TOTAL), "b")
-        bound_ms, bound_by = bound(OPS_PER_CLIENT_TRIP * work, nbytes)
         row = {"name": name, "n": n, "k": k,
                "max_abs_err": max(checks[key]["max_dev"] for key in keys),
                "checks": checks,
-               "ms": device_ms(kern),
-               "profiler_ms": kernel_profiler_ms(kern, name),
-               "wrapper_ms": event_ms(kern), "plain_ms": event_ms(plain),
-               "bound_ms": bound_ms, "bound_by": bound_by,
+               **time_row(name, kern, plain, OPS_PER_CLIENT_TRIP * work,
+                          nbytes),
                "launches": ops.LAUNCHES[name] - launches_before}
         emit({"phase": "kernel_vs_plain", **row})
         out[name] = row
+
+    # mbdf_demand on the bid grids of uniform_truthful_bids.
+    name = "mbdf_demand"
+    launches_before = ops.LAUNCHES[name]
+    inactive = a.sum(dim=1) == 0
+    checks = {}
+    for alpha_fair in (0.0, 0.5, 1.0):
+        prices = auction.uniform_truthful_bids(svc, m, alpha_fair).prices
+        got = ops.mbdf_demand(a, t, prices, alpha_fair)
+        want = mbdf_demand_plain(a, t, prices, alpha_fair)
+        torch.cuda.synchronize()
+        tag = f"{name}@{n}x{k}x{m}/a={alpha_fair}"
+        checks[f"demand@{alpha_fair}"] = check_close(tag, got, want, "demand")
+        if not bool((got >= 0).all()):
+            raise AssertionError(f"{tag}: negative demand")
+        if not bool((got[:, 1:] <= got[:, :-1]).all()):
+            raise AssertionError(f"{tag}: demand rises along the price grid")
+        if not bool((got[inactive] == 0).all()):
+            raise AssertionError(f"{tag}: inactive rows demand bandwidth")
+    prices = auction.uniform_truthful_bids(svc, m, 0.5).prices
+    work = valid * 48 * m
+    nbytes = 4 * (2 * nk + n * m) + 4 * n * m
+    row = {"name": name, "n": n, "k": k, "m": m, "alpha_fair": 0.5,
+           "max_abs_err": max(c["max_dev"] for c in checks.values()),
+           "checks": checks,
+           **time_row(name, lambda: ops.mbdf_demand(a, t, prices, 0.5),
+                      lambda: mbdf_demand_plain(a, t, prices, 0.5),
+                      OPS_PER_CLIENT_TRIP_PRICE * work, nbytes),
+           "launches": ops.LAUNCHES[name] - launches_before}
+    emit({"phase": "kernel_vs_plain", **row})
+    out[name] = row
     return out
 
 
 def compare_episodes(name: str, got: dict, want: dict, period_s: float,
-                     must_finish: bool) -> dict:
+                     must_finish: bool, auction: bool = False) -> dict:
     """Hold a kernel-backend episode to the reference one.
 
     Rounds per period (floor(f T)) and durations must be equal, with one
-    exception: where the two runs' f, already within tolerance, lie on
-    either side of an integer of rounds, floor(f T) may differ by one
-    (float32 f from two summation orders), and then that service's
-    duration may differ by one.  Every such flip is reported."""
+    exception: where the two runs' f lie on either side of an integer of
+    rounds, floor(f T) may differ by one (float32 f from two summation
+    orders), and then that service's duration may differ by one.  Every
+    such flip is reported.  b and f are within tolerance; for an auction
+    policy (``auction``) by ``check_surplus_split``."""
     if got["periods"] != want["periods"] or (
             must_finish and not (got["finished"] and want["finished"])):
         raise AssertionError(f"{name}: episodes ran {got['periods']} and "
@@ -250,8 +356,10 @@ def compare_episodes(name: str, got: dict, want: dict, period_s: float,
         raise AssertionError(f"{name}: the warm solver's rescue ran "
                              f"{got['fallbacks']} and {want['fallbacks']} "
                              f"times")
-    dev = {key: check_close(name, got["history"][key], want["history"][key],
-                            key) for key in ("b", "f")}
+    h, rh = got["history"], want["history"]
+    dev = (check_surplus_split(name, h["b"], rh["b"], h["f"], rh["f"])
+           if auction else {key: check_close(name, h[key], rh[key], key)
+                            for key in ("b", "f")})
     f_got = np.float32(period_s) * got["history"]["f"].astype(np.float32)
     f_want = np.float32(period_s) * want["history"]["f"].astype(np.float32)
     r_got, r_want = got["history"]["rounds"], want["history"]["rounds"]
@@ -262,28 +370,46 @@ def compare_episodes(name: str, got: dict, want: dict, period_s: float,
         raise AssertionError(f"{name}: rounds differ at "
                              f"{np.argwhere(differ)[:10].tolist()}")
     flipped = set(int(svc) for _, svc in flips)
-    d_got, d_want = got["durations"], want["durations"]
+    d_got, d_want = list(got["durations"]), list(want["durations"])
     bad = [i for i, (x, y) in enumerate(zip(d_got, d_want))
            if x != y and not (i in flipped and abs(x - y) == 1)]
     if bad:
         raise AssertionError(f"{name}: durations differ for services {bad}")
+    surplus = {key: dev["b"][key] for key in ("surplus_entries",
+                                             "surplus_max_dev")
+               if key in dev["b"]}
     return {"max_dev_b": dev["b"]["max_dev"], "atol_b": dev["b"]["atol"],
+            **surplus,
             "max_dev_f": dev["f"]["max_dev"], "atol_f": dev["f"]["atol"],
             "rounds_per_period_max": int(r_want.max()),
-            "durations_min_max": [min(d_want), max(d_want)],
+            "durations_min_max": [int(min(d_want)), int(max(d_want))],
             "round_flips": [{"period": int(p), "service": int(v),
                              "fT_kernel": float(f_got[p, v]),
                              "fT_reference": float(f_want[p, v])}
                             for p, v in flips]}
 
 
-# Kernels each kernel backend must launch in an episode of each policy.
-EXPECTED = {("coop", True, "megakernel"): ("market_clear",),
-            ("coop", True, "pallas"): ("dual_demand", "bisect_alloc"),
-            ("coop", False, "pallas"): ("bisect_alloc",),
-            ("es", False, "pallas"): ("bisect_alloc",),
-            ("pp", False, "pallas"): ("bisect_alloc",),
-            ("ec", False, "pallas"): ()}
+# Kernels each kernel backend must launch in an episode of each policy,
+# per path of phase 4.
+SLICE1 = {("coop", True, "megakernel"): ("market_clear",),
+          ("coop", True, "pallas"): ("dual_demand", "bisect_alloc"),
+          ("coop", False, "pallas"): ("bisect_alloc",),
+          ("es", False, "pallas"): ("bisect_alloc",),
+          ("pp", False, "pallas"): ("bisect_alloc",),
+          ("ec", False, "pallas"): ()}
+SELFISH = {("selfish", False, "pallas"): ("mbdf_demand", "bisect_alloc"),
+           ("selfish", False, "megakernel"): ("mbdf_demand", "bisect_alloc")}
+EXPECTED = {**SLICE1, **SELFISH}
+
+
+def _check_launches(label: str, backend: str, key, klaunch: dict,
+                    rlaunch: dict) -> None:
+    if any(rlaunch.values()):
+        raise AssertionError(f"{label}: the reference run launched {rlaunch}")
+    missing = [name for name in EXPECTED[key] if not klaunch[name]]
+    if missing:
+        raise AssertionError(f"{label}: the {backend} run never launched "
+                             f"{missing} ({klaunch})")
 
 
 def run_pair(cfg_kw: dict, label: str, must_finish: bool = True,
@@ -296,67 +422,39 @@ def run_pair(cfg_kw: dict, label: str, must_finish: bool = True,
     backend = cfg_kw["intra_backend"]
     runs = {}
     for bk in (backend, "reference"):
-        cfg = simulator.SimConfig(**{**cfg_kw, "intra_backend": bk},
+        cfg = simulator.SimConfig(**{**PAPER, **cfg_kw, "intra_backend": bk},
                                   collect_alloc=True)
         net = net or simulator._default_net(cfg)
         before = dict(ops.LAUNCHES)
         t0 = time.perf_counter()
         res = simulator.run_scan(cfg, net, arrivals=arrivals, counts=counts,
-                                 device="cuda")
+                                 device=DEVICE)
         sec = time.perf_counter() - t0
         runs[bk] = (res, sec, {name: ops.LAUNCHES[name] - before[name]
                                for name in ops.LAUNCHES})
     (kres, ksec, klaunch), (rres, rsec, rlaunch) = runs[backend], runs["reference"]
-    if any(rlaunch.values()):
-        raise AssertionError(f"{label}: the reference run launched {rlaunch}")
-    key = (cfg_kw["policy"], cfg_kw["warm_start"], backend)
-    missing = [name for name in EXPECTED[key] if not klaunch[name]]
-    if missing:
-        raise AssertionError(f"{label}: the {backend} run never launched "
-                             f"{missing} ({klaunch})")
+    _check_launches(label, backend,
+                    (cfg_kw["policy"], cfg_kw["warm_start"], backend),
+                    klaunch, rlaunch)
     row = {"case": label, "periods": kres["periods"],
            "kernel_s": ksec, "reference_s": rsec,
            "kernel_periods_per_s": kres["periods"] / ksec,
            "reference_periods_per_s": rres["periods"] / rsec,
            "avg_duration": kres["avg_duration"], "launches": klaunch,
-           **compare_episodes(label, kres, rres, net.period_s, must_finish)}
+           **compare_episodes(label, kres, rres, net.period_s, must_finish,
+                              auction=cfg_kw["policy"] == "selfish")}
     emit({"phase": "episode", **row})
     return row
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+def market_pair(policy: str, warm: bool, backend: str) -> dict:
+    """The market-scale episode: every service arrives at period 0 and gets
+    the paper's share of 1 MHz (B = 10 MHz over 10 services), so each runs
+    several rounds per period; 100 rounds (not 2000) let services finish,
+    at different periods, within the 10-period episode."""
     from repro_torch.fl import simulator
-    from repro_torch.kernels import _build, ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    emit({"phase": "card", "name": kind, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
-
-    emit({"phase": "build", "seconds": _build.build()})
-
-    per_shape = {(n, k): kernel_phase(n, k)
-                 for n, k in ((8192, 32), (8191, 45))}
-
-    # --- the main path: episodes through the entry points a user calls ----
-    ops.reset_launches()
-    for pol, warm, backend in EXPECTED:
-        run_pair(dict(policy=pol, warm_start=warm, intra_backend=backend),
-                 f"{pol}{'-warm' if warm else ''}-{backend}")
-
-    # Market scale: every service arrives at period 0 and gets the paper's
-    # share of 1 MHz (B = 10 MHz over 10 services), so each runs several
-    # rounds per period; 100 rounds (not 2000) let services finish, at
-    # different periods, within the 10-period episode.
-    market_kw = dict(n_services_total=8192, max_periods=10,
+    market_kw = dict(n_services_total=MARKET_N, max_periods=10,
                      rounds_required=100)
     cfg = simulator.SimConfig(**market_kw)
     net = simulator._default_net(cfg)
@@ -364,17 +462,183 @@ def main() -> int:
         net.total_bandwidth_mhz * cfg.n_services_total
         / simulator.SimConfig().n_services_total))
     _, counts = simulator._static_draws(cfg, net)
-    run_pair(dict(policy="coop", warm_start=True, intra_backend="megakernel",
-                  **market_kw),
-             "coop-warm-megakernel-market8192", must_finish=False, net=net,
-             arrivals=np.zeros(cfg.n_services_total, np.int64), counts=counts)
+    return run_pair(dict(policy=policy, warm_start=warm,
+                         intra_backend=backend, **market_kw),
+                    f"{policy}{'-warm' if warm else ''}-{backend}"
+                    f"-market{MARKET_N}", must_finish=False, net=net,
+                    arrivals=np.zeros(cfg.n_services_total, np.int64),
+                    counts=counts)
+
+
+def batch_pair() -> dict:
+    """run_batch over BATCH_SEEDS with correlated scenario processes, warm
+    coop on "megakernel" against "reference"; each seed's episode held to
+    the reference's by compare_episodes."""
+    from repro_torch import scenarios
+    from repro_torch.fl import simulator
+    from repro_torch.kernels import ops
+
+    cfg_kw = dict(PAPER, policy="coop", warm_start=True,
+                  channel_process=scenarios.spec("gauss_markov"),
+                  churn_process=scenarios.spec("gilbert"),
+                  arrival_process="mmpp", collect_alloc=True)
+    runs = {}
+    for bk in ("megakernel", "reference"):
+        cfg = simulator.SimConfig(**cfg_kw, intra_backend=bk)
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        res = simulator.run_batch(cfg, list(BATCH_SEEDS), device=DEVICE)
+        runs[bk] = (res, time.perf_counter() - t0,
+                    {name: ops.LAUNCHES[name] - before[name]
+                     for name in ops.LAUNCHES})
+    (kres, ksec, klaunch), (rres, rsec, rlaunch) = (runs["megakernel"],
+                                                    runs["reference"])
+    _check_launches("run_batch", "megakernel", ("coop", True, "megakernel"),
+                    klaunch, rlaunch)
+    period_s = simulator._default_net(cfg).period_s
+    rows = []
+    for i, seed in enumerate(BATCH_SEEDS):
+        per = []
+        for res in (kres, rres):
+            done = res["history"]["all_done"][i]
+            periods = int(np.argmax(done)) + 1 if done.any() else len(done)
+            per.append({"periods": periods, "finished": bool(res["finished"][i]),
+                        "fallbacks": int(res["fallbacks"][i]),
+                        "durations": res["durations"][i].tolist(),
+                        "history": {key: res["history"][key][i][:periods]
+                                    for key in ("b", "f", "rounds")}})
+        rows.append({"seed": seed, "periods": per[0]["periods"],
+                     **compare_episodes(f"run_batch/seed {seed}", *per,
+                                        period_s, must_finish=True)})
+    periods = sum(r["periods"] for r in rows)
+    row = {"case": "run_batch-gauss_markov-gilbert-mmpp-coop-warm-megakernel",
+           "seeds": list(BATCH_SEEDS), "kernel_s": ksec, "reference_s": rsec,
+           "kernel_periods_per_s": periods / ksec,
+           "reference_periods_per_s": periods / rsec,
+           "launches": klaunch, "per_seed": rows}
+    emit({"phase": "episode", **row})
+    return row
+
+
+def drive_path(label: str, fn) -> dict:
+    """Run one main path with the launch counts set to 0 just before it,
+    and return the counts read just after."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    fn()
     launches = dict(ops.LAUNCHES)
-    emit({"phase": "launches", "launches": launches})
+    emit({"phase": "path", "path": label, "launches": launches})
+    return launches
+
+
+def path_slice1() -> None:
+    for pol, warm, backend in SLICE1:
+        run_pair(dict(policy=pol, warm_start=warm, intra_backend=backend),
+                 f"{pol}{'-warm' if warm else ''}-{backend}")
+    market_pair("coop", True, "megakernel")
+
+
+def path_selfish() -> None:
+    for pol, warm, backend in SELFISH:
+        run_pair(dict(policy=pol, warm_start=warm, intra_backend=backend),
+                 f"{pol}-{backend}")
+    market_pair("selfish", False, "pallas")
+
+
+def auction_phase() -> dict:
+    """Phase 5: the auction entry on the card against the same call on the
+    CPU, and the prefix charges against the rerun."""
+    from repro_torch.core import auction, fairness
+    from repro_torch.core.types import ServiceSet
+
+    def welfare_atol(bid, b):
+        welfare = float(auction.pseudo_mmvf_integral(
+            bid, torch.zeros_like(b), b).sum())
+        return 1e-4 + 1e-6 * welfare
+
+    svc = market(AUCTION_N, 32)
+    b_total = float(AUCTION_N)            # the paper's 1 MHz per service
+    t0 = time.perf_counter()
+    res = auction.run_auction(svc, b_total, 5, 0.5, backend="pallas")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = ServiceSet(*(None if x is None else x.cpu() for x in svc))
+    t0 = time.perf_counter()
+    ref = auction.run_auction(cpu, b_total, 5, 0.5, backend="pallas")
+    cpu_s = time.perf_counter() - t0
+    tag = f"run_auction@{AUCTION_N}"
+    total = check_close(tag, res.b.sum(), torch.tensor(b_total), "split_sum")
+    short = res.charges - fairness.fairness_cost(res.f, 0.5)
+    if not bool((short >= -1e-6).all()):
+        raise AssertionError(f"{tag}: a charge is below its fairness cost "
+                             f"by {float(-short.min())}")
+    bid = auction.uniform_truthful_bids(cpu, 5, 0.5, backend="pallas")
+    atol = welfare_atol(bid, ref.b)
+    checks = {"b_total": total,
+              "price": check_close(tag, res.price, ref.price, "price"),
+              **check_surplus_split(tag, res.b, ref.b, res.f, ref.f),
+              "charges": check_close(tag, res.charges, ref.charges, "demand",
+                                     atol=atol)}
+
+    small = market(RERUN_N, 32)
+    bid = auction.uniform_truthful_bids(small, 5, 0.5, backend="pallas")
+    b, _ = auction.allocate(bid, float(RERUN_N))
+    args = (small, bid, b, float(RERUN_N), 0.5)
+    prefix = auction.charges(*args, method="prefix")
+    rerun = auction.charges(*args, method="rerun")
+    tag = f"charges@{RERUN_N}"
+    checks["prefix_vs_rerun"] = check_close(tag, prefix, rerun, "demand",
+                                            atol=welfare_atol(bid, b))
+    row = {"n": AUCTION_N, "m": 5, "b_total": b_total,
+           "price": float(res.price), "card_s": card_s, "cpu_s": cpu_s,
+           "prefix_ms": event_ms(lambda: auction.charges(*args,
+                                                         method="prefix")),
+           "rerun_ms": event_ms(lambda: auction.charges(*args,
+                                                        method="rerun")),
+           "checks": checks}
+    emit({"phase": "auction", **row})
+    return row
+
+
+def card_info() -> tuple[str, str]:
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    return kind, smi
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind, smi = card_info()
+    emit({"phase": "card", "name": kind, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    emit({"phase": "build", "seconds": _build.build()})
+
+    per_shape = {(n, k): kernel_phase(n, k, m) for n, k, m in KERNEL_SHAPES}
+
+    # --- the main paths, through the entry points a user calls -----------
+    paths = {"slice1": drive_path("slice1", path_slice1),
+             "selfish": drive_path("selfish", path_selfish),
+             "run_batch": drive_path("run_batch", batch_pair)}
+    launches = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
+    emit({"phase": "launches", "launches": launches, "per_path": paths})
     missing = [name for name, count in launches.items() if count < 1]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"main paths never launched {missing}")
 
-    rows = per_shape[(8192, 32)]
+    auction_phase()
+
+    rows = per_shape[KERNEL_SHAPES[0][:2]]
     print(smi, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda",
@@ -382,7 +646,8 @@ def main() -> int:
          "launches": launches[name],
          "max_abs_err": max(per_shape[s][name]["max_abs_err"]
                             for s in per_shape),
-         "ms": rows[name]["ms"], "wrapper_ms": rows[name]["wrapper_ms"],
+         "ms": rows[name]["ms"], "profiler_ms": rows[name]["profiler_ms"],
+         "wrapper_ms": rows[name]["wrapper_ms"],
          "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"],
          "bound_by": rows[name]["bound_by"], "library_ms": None}

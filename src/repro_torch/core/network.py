@@ -9,15 +9,17 @@ Defaults (paper values):
   * local training time ~ U[0.01, 0.05] s ; global aggregation 1e-5 s
   * uplink power   ~ U[0.05, 0.15] W ; downlink power ~ U[0.1, 0.3] W
 
-Randomness comes from an explicit ``torch.Generator``.  The draws are split
-from the arithmetic that turns them into a ServiceSet
-(``services_from_draws``), so a caller holding another generator's draws
-(a differential test) can feed them through the same arithmetic.
+Randomness comes from an explicit ``torch.Generator``.  The draws
+(``sample_draws`` -> ``ServiceDraws``) are split from the arithmetic that
+turns them into a ServiceSet (``services_from_draws``), so a caller holding
+another generator's draws (a differential test) can feed them through the
+same arithmetic, and a channel process can swap the path-loss normals.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -115,15 +117,40 @@ def services_from_draws(client_counts: torch.Tensor, k_max: int,
     return svc, meta
 
 
-def sample_services(
-    generator: torch.Generator,
-    n_services: int,
-    cfg: NetworkConfig = NetworkConfig(),
-    k_max: int | None = None,
-    client_counts: torch.Tensor | None = None,
-) -> tuple[ServiceSet, dict]:
-    """Draw a padded batch of services per §VI.A on the generator's device.
-    Returns (ServiceSet, meta)."""
+class ServiceDraws(NamedTuple):
+    """The raw draws of one period's service set: the inputs of
+    ``services_from_draws`` in its argument order.  A channel process that
+    rebuilds the set (``Process.rebuilds``) swaps the path-loss normals and
+    keeps every other draw."""
+
+    client_counts: torch.Tensor  # (N,) int32
+    k_max: int
+    eps_service: torch.Tensor    # (N, 1) standard normal
+    eps_client: torch.Tensor     # (N, K) standard normal
+    size_mbit: torch.Tensor      # (N, 1)
+    p_ul: torch.Tensor           # (N, K)
+    p_dl: torch.Tensor           # (N, 1)
+    t_local: torch.Tensor        # (N, K)
+
+
+def channel_innovations(generator: torch.Generator, n_services: int,
+                        k_max: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The standard-normal path-loss draws ``(eps_service (N, 1),
+    eps_client (N, K))``: the first draws ``sample_draws`` takes from its
+    generator once the client counts are known, so the one definition of
+    them."""
+    dev = generator.device
+    return (torch.randn((n_services, 1), generator=generator, device=dev),
+            torch.randn((n_services, k_max), generator=generator, device=dev))
+
+
+def sample_draws(generator: torch.Generator, n_services: int,
+                 cfg: NetworkConfig = NetworkConfig(),
+                 k_max: int | None = None,
+                 client_counts: torch.Tensor | None = None) -> ServiceDraws:
+    """Draw a period's raw service parameters per §VI.A on the generator's
+    device (client counts first when not given, then the path-loss
+    normals, sizes, powers and compute times)."""
     if client_counts is None:
         client_counts = sample_client_counts(generator, n_services, cfg)
     client_counts = torch.as_tensor(client_counts, dtype=torch.int32,
@@ -131,13 +158,36 @@ def sample_services(
     if k_max is None:
         k_max = int(torch.max(client_counts))
     shape = (n_services, k_max)
-    dev = generator.device
-    eps_service = torch.randn((n_services, 1), generator=generator, device=dev)
-    eps_client = torch.randn(shape, generator=generator, device=dev)
-    size_mbit = _uniform(generator, (n_services, 1), cfg.model_mbit_lo,
-                         cfg.model_mbit_hi)
-    p_ul = _uniform(generator, shape, cfg.p_ul_lo, cfg.p_ul_hi)
-    p_dl = _uniform(generator, (n_services, 1), cfg.p_dl_lo, cfg.p_dl_hi)
-    t_local = _uniform(generator, shape, cfg.t_local_lo, cfg.t_local_hi)
-    return services_from_draws(client_counts, k_max, eps_service, eps_client,
-                               size_mbit, p_ul, p_dl, t_local, cfg)
+    eps_service, eps_client = channel_innovations(generator, n_services, k_max)
+    return ServiceDraws(
+        client_counts, k_max, eps_service, eps_client,
+        _uniform(generator, (n_services, 1), cfg.model_mbit_lo,
+                 cfg.model_mbit_hi),
+        _uniform(generator, shape, cfg.p_ul_lo, cfg.p_ul_hi),
+        _uniform(generator, (n_services, 1), cfg.p_dl_lo, cfg.p_dl_hi),
+        _uniform(generator, shape, cfg.t_local_lo, cfg.t_local_hi))
+
+
+def sample_services(
+    generator: torch.Generator,
+    n_services: int,
+    cfg: NetworkConfig = NetworkConfig(),
+    k_max: int | None = None,
+    client_counts: torch.Tensor | None = None,
+    channel_normals: tuple[torch.Tensor, torch.Tensor] | None = None,
+    extra_pathloss_db: torch.Tensor | None = None,
+) -> tuple[ServiceSet, dict]:
+    """Draw a padded batch of services per §VI.A on the generator's device.
+    Returns (ServiceSet, meta).
+
+    ``channel_normals`` replaces the path-loss standard normals (the pair
+    ``channel_innovations`` draws) with externally evolved ones;
+    ``extra_pathloss_db`` is an additive (N, K) dB term on top (fast
+    fading).  Every other draw stays on the same generator stream, so both
+    hooks perturb only the channel."""
+    draws = sample_draws(generator, n_services, cfg, k_max, client_counts)
+    if channel_normals is not None:
+        draws = draws._replace(eps_service=channel_normals[0],
+                               eps_client=channel_normals[1])
+    return services_from_draws(*draws, cfg,
+                               extra_pathloss_db=extra_pathloss_db)

@@ -13,8 +13,9 @@ package's, so one configuration means the same in both packages:
 
   * ``"reference"``  -- the plain PyTorch bisection in ``core/intra``;
   * ``"pallas"``     -- in this package, the per-op CUDA kernels:
-                        ``bisect_alloc`` for every f*(b), and for warm
-                        ``coop`` one ``dual_demand`` launch per Newton trip;
+                        ``bisect_alloc`` for every f*(b), for warm ``coop``
+                        one ``dual_demand`` launch per Newton trip, and for
+                        ``selfish`` one ``mbdf_demand`` launch per bid book;
   * ``"megakernel"`` -- as ``"pallas"``, but ``coop``'s whole dual solve is
                         ONE ``market_clear`` launch.
 
@@ -22,7 +23,14 @@ The tensors' device decides between a kernel and its plain version
 (``kernels.ops``): on the CPU the ``"pallas"`` and ``"megakernel"``
 backends run the kernels' plain PyTorch versions.
 
-``selfish`` (the fairness-adjusted auction) is not ported yet.
+``selfish`` (the fairness-adjusted auction) differs from the JAX package in
+one dispatch: on ``"pallas"`` and ``"megakernel"`` its bids come from the
+``mbdf_demand`` kernel (``mbdf_grid(backend="pallas")``), where the JAX
+policy always uses the reference grid.  Under ``jit`` XLA fuses that grid
+into one loop; run eagerly it is some 500 small launches per period.  The
+JAX package holds the kernel to the reference grid within rtol 1e-4 /
+atol 1e-5 (``tests/test_market_clear.py``).  ``"reference"`` stays the
+reference grid.
 """
 from __future__ import annotations
 
@@ -31,15 +39,11 @@ from typing import Any, Callable, NamedTuple, Protocol
 
 import torch
 
-from repro_torch.core import baselines, disba, intra
+from repro_torch.core import auction, baselines, disba, intra
 from repro_torch.core.types import BISECT_ITERS, ServiceSet
 from repro_torch.kernels import ops
 
 INTRA_BACKENDS = ("reference", "pallas", "megakernel")
-
-_NOT_PORTED = {"selfish": "the auction (core/auction.py, core/fairness.py and "
-                          "the mbdf_demand kernel) is not yet ported"}
-
 
 class AllocationPolicy(Protocol):
     """An inter-service allocation step: (ServiceSet, B) -> (b, f)."""
@@ -164,9 +168,6 @@ def available() -> tuple[str, ...]:
 
 
 def _check(name: str, unknown: dict, known: tuple[str, ...]) -> None:
-    if name in _NOT_PORTED:
-        raise ValueError(f"policy {name!r} is not available in repro_torch: "
-                         f"{_NOT_PORTED[name]}")
     if name not in _REGISTRY:
         raise ValueError(f"unknown policy {name!r}; available: {available()}")
     if unknown:
@@ -254,7 +255,7 @@ STATEFUL_KNOWN_OPTIONS = tuple(sorted(
 
 
 # ---------------------------------------------------------------------------
-# The ported paper policies.
+# The five paper policies.
 # ---------------------------------------------------------------------------
 
 @register("coop")
@@ -323,6 +324,24 @@ def _coop_warm(*, intra_backend: str = "reference", iters: int = BISECT_ITERS,
         return res.b, res.f, WarmDualState(lam=lam_next, fallbacks=fallbacks)
 
     return StatefulPolicy(init_state=init_state, step=step)
+
+
+@register("selfish")
+def _selfish(*, n_bids: int = 5, alpha_fair: float = 0.5,
+             intra_backend: str = "reference", iters: int = BISECT_ITERS, **_):
+    """Fairness-adjusted multi-bid auction with truthful uniform bids
+    (§V.E).  The kernel backends build the bids with ``mbdf_demand`` (see
+    the module docstring) and evaluate f*(b) with ``bisect_alloc``."""
+    _freq = freq_fn(intra_backend, iters)
+    grid = "reference" if intra_backend == "reference" else "pallas"
+
+    def fn(svc: ServiceSet, b_total):
+        bid = auction.uniform_truthful_bids(svc, n_bids, alpha_fair,
+                                            iters=iters, backend=grid)
+        b, _ = auction.allocate(bid, b_total)
+        return b, _freq(svc, b)
+
+    return fn
 
 
 @register("ec")

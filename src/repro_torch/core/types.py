@@ -21,6 +21,9 @@ from typing import NamedTuple
 
 import torch
 
+# Width of one tier of ``cumsum``.
+_SCAN_TIER = 16
+
 # Fixed-trip bisection count.  48 halvings shrink any O(1) bracket to ~4e-15
 # of its width -- far below float32 resolution.
 BISECT_ITERS = 48
@@ -201,3 +204,27 @@ def round_time_given_alloc(svc: ServiceSet,
     safe_b = torch.clamp(b_clients, min=1e-30)
     per_client = svc.t_comp + svc.alpha / safe_b
     return torch.amax(torch.where(svc.mask, per_client, _NEG_INF), dim=-1)
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, in float32 adds whose
+    order is fixed: sequential within tiers of 16 entries, each tier then
+    offset by the prefix (the same tiered sum, recursively) of the tiers
+    before it.  It is the association XLA gives ``jnp.cumsum`` on the CPU,
+    so a book's prefix sums are bitwise the reference package's; and every
+    add is an elementwise IEEE float32 op, so the result is the same on
+    every device (``torch.cumsum`` accumulates in double on the CPU and
+    scans in another order on the card)."""
+    n = x.shape[-1]
+    if n <= _SCAN_TIER:
+        cols = [x[..., 0]]
+        for j in range(1, n):
+            cols.append(cols[-1] + x[..., j])
+        return torch.stack(cols, dim=-1)
+    tiers = -(-n // _SCAN_TIER)
+    pad = torch.nn.functional.pad(x, (0, tiers * _SCAN_TIER - n))
+    within = cumsum(pad.reshape(*x.shape[:-1], tiers, _SCAN_TIER))
+    before = cumsum(within[..., -1])
+    offset = torch.nn.functional.pad(before[..., :-1], (1, 0))
+    out = within + offset[..., None]
+    return out.reshape(*x.shape[:-1], tiers * _SCAN_TIER)[..., :n]

@@ -1,8 +1,8 @@
 """Multi-period wireless-network simulator (paper §VI.D long-term setting).
 
-Services arrive via a Poisson process, live for ``rounds_required`` FL
-rounds, and exit on completion.  Each period the active set is re-allocated
-bandwidth by the selected policy.
+Services arrive via an arrival process, live for ``rounds_required`` FL
+rounds, and exit on completion.  Each period the active set is
+re-allocated bandwidth by the selected policy.
 
 ``run_scan`` is the episode engine.  The episode state lives in a
 fixed-capacity ServiceSet (capacity ``n_services_total``): a service that
@@ -11,19 +11,22 @@ has not arrived yet or has already finished is an all-masked row
 every period runs the same shapes.  The period loop is a Python loop that
 stops after the period in which every service finished; per period it
 waits on the host twice: for that stopping test, and (warm ``coop``) for
-the solver's non-finite rescue test.
+the solver's non-finite rescue test.  ``run_batch`` runs one such episode
+per seed, each with its own warm state, and stacks the summaries as the
+JAX package's vmapped ``run_batch`` does.
 
 Randomness comes from explicit ``torch.Generator``s seeded from
 ``cfg.seed``: the episode-static arrivals and client counts
-(``_static_draws``) and, per period, the service set drawn by
-``sampler(period)``.  A caller may pass its own ``sampler`` (and its own
+(``_static_draws``) and, per period, what ``sampler(period)`` gives: the
+period's raw service draws and the draw source of the scenario processes
+(``PeriodDraws``).  A caller may pass its own ``sampler`` (and its own
 ``arrivals``/``counts``), which is how a test feeds the reference
 package's draws through this engine.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -32,13 +35,33 @@ from repro_torch import scenarios
 from repro_torch.core import network, policy as policy_mod
 from repro_torch.core.types import (ServiceSet, default_device, mask_clients,
                                     mask_inactive, scale_uplink)
+from repro_torch.scenarios import GeneratorSource, generator
 
-# Salts of the generator streams, so no two draws share a seed.
-_DRAW_SALT = (1 << 30) + 3      # episode-static arrivals + client counts
-_INIT_SALT = 1 << 30            # scenario-process initial state
-_SCENARIO_SALT = (1 << 30) + 1  # per-period scenario-process steps
+# Salt of the episode-static draws (arrivals + client counts), above every
+# period number and the scenario salts, so no two draws share a seed.
+_DRAW_SALT = (1 << 30) + 3
 
 _AGG_KEYS = ("freq_sum", "objective", "n_active", "n_clients")
+# The dtypes of the reference's stacked history.
+_HISTORY_DTYPES = {"freq_sum": np.float32, "objective": np.float32,
+                   "n_active": np.int32, "n_clients": np.int32,
+                   "all_done": np.bool_, "b": np.float32, "f": np.float32,
+                   "active": np.bool_, "rounds": np.int32}
+
+
+class PeriodDraws(NamedTuple):
+    """What a sampler gives for one period.
+
+    ``services``: the period's raw draws (``network.ServiceDraws``), or an
+    already built ServiceSet (not for a channel process that rebuilds the
+    set); ``source``: the scenario processes' draws of the period;
+    ``init``: the draws of their initial states, read at period 0 only
+    (None: the engine's own, seeded from ``cfg.seed``).
+    """
+
+    services: network.ServiceDraws | ServiceSet
+    source: scenarios.Source
+    init: scenarios.Source | None = None
 
 
 @dataclasses.dataclass
@@ -84,39 +107,39 @@ def _k_cap(cfg: SimConfig) -> int:
     return int(np.ceil(cfg.mean_clients + 5.0 * np.sqrt(max(cfg.var_clients, 0.0))))
 
 
-def _generator(device, *words: int) -> torch.Generator:
-    """A generator on ``device`` seeded from a hash of ``words``."""
-    seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
-
-
 def _static_draws(cfg: SimConfig, net: network.NetworkConfig
                   ) -> tuple[np.ndarray, np.ndarray]:
     """Episode-static randomness: (n_services_total,) arrival periods and
     client counts (a clipped normal, fixed at arrival), drawn on the host."""
-    gen = _generator("cpu", cfg.seed + 7, _DRAW_SALT)
     draw = scenarios.get_arrival(cfg.arrival_process)
-    arrivals = draw(gen, cfg.n_services_total, cfg.p_arrive)
+    arrivals = draw(GeneratorSource("cpu", cfg.seed + 7, _DRAW_SALT),
+                    cfg.n_services_total, cfg.p_arrive)
     std = np.sqrt(max(cfg.var_clients, 1e-9))
-    eps = torch.randn((cfg.n_services_total,), generator=gen)
+    eps = torch.randn((cfg.n_services_total,),
+                      generator=generator("cpu", cfg.seed + 7, _DRAW_SALT))
     counts = torch.clamp(torch.round(cfg.mean_clients + std * eps),
                          net.k_min, _k_cap(cfg))
     return arrivals.numpy().astype(np.int64), counts.numpy().astype(np.int64)
 
 
 def default_sampler(cfg: SimConfig, net: network.NetworkConfig, counts,
-                    device) -> Callable[[int], ServiceSet]:
-    """The per-period service sets of an episode: ``sample_services`` on a
-    generator seeded from (cfg.seed, period), on ``device``."""
-    counts_t = torch.as_tensor(np.asarray(counts), dtype=torch.int32,
+                    device) -> Callable[[int], PeriodDraws]:
+    """The per-period draws of an episode on ``device``: ``sample_draws`` on
+    a generator seeded from (cfg.seed, period), the scenario draws from
+    (cfg.seed, period, stream), the initial states' from (cfg.seed,
+    stream)."""
+    counts_t = torch.as_tensor(np.array(counts), dtype=torch.int32,
                                device=device)
     k_max = _k_cap(cfg)
+    words = (cfg.seed + 7,)
 
-    def sampler(period: int) -> ServiceSet:
-        gen = _generator(device, cfg.seed + 7, period)
-        svc, _ = network.sample_services(gen, cfg.n_services_total, net,
-                                         k_max=k_max, client_counts=counts_t)
-        return svc
+    def sampler(period: int) -> PeriodDraws:
+        raw = network.sample_draws(generator(device, *words, period),
+                                   cfg.n_services_total, net, k_max=k_max,
+                                   client_counts=counts_t)
+        return PeriodDraws(raw, GeneratorSource(device, *words, period),
+                           GeneratorSource(device, *words) if period == 0
+                           else None)
 
     return sampler
 
@@ -126,20 +149,28 @@ def default_sampler(cfg: SimConfig, net: network.NetworkConfig, counts,
 # ---------------------------------------------------------------------------
 
 def _period_step(rounds_done, duration, chan_state, churn_state, pol_state,
-                 period, arrivals, svc_full, generator, extra_avail=None,
-                 ul_comp=None, *, policy_fn, chan_step, churn_step, net,
-                 rounds_required: int):
+                 period, arrivals, draws: PeriodDraws, extra_avail=None,
+                 ul_comp=None, *, policy_fn, chan_step, churn_step,
+                 chan_rebuilds: bool, net, rounds_required: int):
     """One period: evolve channels and churn, flip activity masks, allocate.
 
-    ``svc_full`` is the period's sampled set; ``generator`` drives the
-    scenario processes.  ``extra_avail`` is an optional (N, K) bool
-    availability mask applied on top of churn, ``ul_comp`` an optional (N,)
+    ``draws`` is the period's ``PeriodDraws``: a rebuilding channel process
+    builds the set from its raw draws, any other is handed the set built
+    from them.  ``extra_avail`` is an optional (N, K) bool availability
+    mask applied on top of churn, ``ul_comp`` an optional (N,)
     uplink-compression multiplier applied before the policy.  Returns the
     new carry, the scalar ``stats`` and ``extras``, the period's allocation
     record (masked set, b, f, active, rounds before the clamp).
     """
-    chan_state, svc_full = chan_step(generator, chan_state, svc_full)
-    churn_state, svc_full = churn_step(generator, churn_state, svc_full)
+    if chan_rebuilds:
+        chan_state, svc_full = chan_step(draws.source, chan_state,
+                                         draws.services)
+    else:
+        svc_full = draws.services
+        if not isinstance(svc_full, ServiceSet):
+            svc_full, _ = network.services_from_draws(*svc_full, net)
+        chan_state, svc_full = chan_step(draws.source, chan_state, svc_full)
+    churn_state, svc_full = churn_step(draws.source, churn_state, svc_full)
     if extra_avail is not None:
         svc_full = mask_clients(svc_full, extra_avail)
     if ul_comp is not None:
@@ -166,56 +197,38 @@ def _period_step(rounds_done, duration, chan_state, churn_state, pol_state,
             extras)
 
 
-def _summarize(cfg: SimConfig, rounds_done, duration, history: list[dict],
-               fallbacks: int) -> dict:
-    """The summary ``repro.fl.simulator.run_scan`` returns, from the
-    per-period stats of the periods that ran (up to and including the one in
-    which every service finished), plus ``fallbacks``: in how many periods
-    the warm solver served its cold-bisection rescue."""
-    duration = duration.cpu().numpy()
-    finished = bool(np.all(rounds_done.cpu().numpy() >= cfg.rounds_required))
-    out = {
-        "avg_duration": float(np.mean(duration)),
-        "std_duration": float(np.std(duration)),
-        "durations": [int(d) for d in duration],
-        "periods": len(history),
-        "finished": finished,
-        "fallbacks": fallbacks,
-    }
-    stacked = {k: torch.stack([h[k] for h in history]).cpu().numpy()
-               for k in history[0] if k != "all_done"}
-    if cfg.collect_history:
-        out["history"] = stacked
+class _Episode(NamedTuple):
+    rounds_done: np.ndarray     # (N,) int32
+    duration: np.ndarray        # (N,) int32
+    history: dict               # key -> (periods run, ...) numpy stack
+    fallbacks: int
+
+
+def _check_draws(draws, period: int, n: int, k_max: int, device,
+                 rebuilds: bool, channel) -> PeriodDraws:
+    if isinstance(draws, ServiceSet):
+        draws = PeriodDraws(draws, None)
+    services = draws.services
+    if isinstance(services, ServiceSet):
+        if rebuilds:
+            raise ValueError(
+                f"channel process {scenarios.as_spec(channel, 'iid').name!r} "
+                f"rebuilds the set from the period's raw draws, but "
+                f"sampler({period}) gave a built ServiceSet")
+        shape, dev = tuple(services.alpha.shape), services.device
     else:
-        out["history"] = None
-        out["totals"] = {k: float(np.sum(stacked[k])) for k in _AGG_KEYS}
-    return out
-
-
-def run_scan(cfg: SimConfig, net: network.NetworkConfig | None = None, *,
-             arrivals=None, counts=None, avail=None,
-             sampler: Callable[[int], ServiceSet] | None = None,
-             device=None) -> dict:
-    """Simulate one episode.  Returns avg_duration, std_duration, durations,
-    periods, finished, fallbacks, and the per-period history as stacked
-    numpy arrays (``totals`` instead when ``collect_history`` is False).
-
-    ``arrivals``/``counts`` replace the episode-static draws with an explicit
-    (n_services_total,) admission trace; ``avail`` adds a
-    (max_periods, n_services_total, k_max) bool availability stream;
-    ``sampler(period) -> ServiceSet`` replaces the per-period draws.  The
-    episode runs on ``device`` (default: the card).
-    """
-    device = torch.device(device) if device is not None else default_device()
-    net = net or _default_net(cfg)
-    if (arrivals is None) != (counts is None):
-        raise ValueError("pass arrivals and counts together (or neither)")
-    if cfg.collect_alloc and not cfg.collect_history:
+        shape, dev = tuple(services.eps_client.shape), services.eps_client.device
+    if dev.type != device.type or shape != (n, k_max):
         raise ValueError(
-            "collect_alloc stacks the per-period allocation stream into the "
-            "history, so it requires collect_history=True")
-    if arrivals is None:
-        arrivals, counts = _static_draws(cfg, net)
+            f"sampler({period}) gave a {shape} set on {dev}; the episode "
+            f"needs ({n}, {k_max}) on {device}")
+    return draws
+
+
+def _run_episode(cfg: SimConfig, net: network.NetworkConfig, arrivals,
+                 counts, avail, sampler, device) -> _Episode:
+    """The period loop of one episode, up to and including the period in
+    which every service finished (or ``max_periods``)."""
     n, k_max = cfg.n_services_total, _k_cap(cfg)
     if avail is not None:
         avail = torch.as_tensor(np.asarray(avail), dtype=torch.bool,
@@ -233,37 +246,174 @@ def run_scan(cfg: SimConfig, net: network.NetworkConfig | None = None, *,
         alpha_fair=cfg.alpha_fair, intra_backend=cfg.intra_backend)
     chan = scenarios.get_channel(cfg.channel_process, net)
     churn = scenarios.get_churn(cfg.churn_process, net)
-    init_gen = _generator(device, cfg.seed + 7, _INIT_SALT)
-    chan_state = chan.init(init_gen, n, k_max)
-    churn_state = churn.init(init_gen, n, k_max)
     pol_state = pol.init_state(n, device)
 
-    arrivals_t = torch.as_tensor(np.asarray(arrivals), dtype=torch.int32,
+    arrivals_t = torch.as_tensor(np.array(arrivals), dtype=torch.int32,
                                  device=device)
     rounds_done = torch.zeros((n,), dtype=torch.int32, device=device)
     duration = torch.zeros((n,), dtype=torch.int32, device=device)
     history = []
     for period in range(cfg.max_periods):
-        svc_full = sampler(period)
-        if (svc_full.device.type != device.type
-                or svc_full.alpha.shape != (n, k_max)):
-            raise ValueError(
-                f"sampler({period}) gave a {tuple(svc_full.alpha.shape)} set "
-                f"on {svc_full.device}; the episode needs ({n}, {k_max}) on "
-                f"{device}")
+        draws = _check_draws(sampler(period), period, n, k_max, device,
+                             chan.rebuilds, cfg.channel_process)
+        if draws.source is None:
+            draws = draws._replace(
+                source=GeneratorSource(device, cfg.seed + 7, period))
+        if period == 0:
+            init = draws.init or GeneratorSource(device, cfg.seed + 7)
+            chan_state = chan.init(init, n, k_max)
+            churn_state = churn.init(init, n, k_max)
         (rounds_done, duration, chan_state, churn_state, pol_state, stats,
          extras) = _period_step(
             rounds_done, duration, chan_state, churn_state, pol_state, period,
-            arrivals_t, svc_full,
-            _generator(device, cfg.seed + 7, period, _SCENARIO_SALT),
-            None if avail is None else avail[period],
+            arrivals_t, draws, None if avail is None else avail[period],
             policy_fn=pol.step, chan_step=chan.step, churn_step=churn.step,
-            net=net, rounds_required=cfg.rounds_required)
+            chan_rebuilds=chan.rebuilds, net=net,
+            rounds_required=cfg.rounds_required)
         if cfg.collect_alloc:
             stats.update(b=extras["b"], f=extras["f"],
                          active=extras["active"], rounds=extras["rounds"])
         history.append(stats)
         if bool(stats["all_done"]):
             break
-    return _summarize(cfg, rounds_done, duration, history,
-                      policy_mod.fallback_count(pol_state))
+    stacked = {k: torch.stack([h[k] for h in history]).cpu().numpy()
+               for k in history[0]}
+    return _Episode(rounds_done.cpu().numpy(), duration.cpu().numpy(),
+                    stacked, policy_mod.fallback_count(pol_state))
+
+
+def _check_run_inputs(cfg: SimConfig, arrivals, counts) -> None:
+    if (arrivals is None) != (counts is None):
+        raise ValueError("pass arrivals and counts together (or neither)")
+    if cfg.collect_alloc and not cfg.collect_history:
+        raise ValueError(
+            "collect_alloc stacks the per-period allocation stream into the "
+            "history, so it requires collect_history=True")
+
+
+def _totals(history: dict) -> dict:
+    """The aggregate-only mode's sums over the periods that ran, added in
+    order in the reference's dtypes, as its aggregate carry adds them."""
+    out = {}
+    for key in _AGG_KEYS:
+        dtype = _HISTORY_DTYPES[key]
+        total = np.zeros((), dtype)
+        for v in history[key].astype(dtype):
+            total = (total + v).astype(dtype)
+        out[key] = total
+    return out
+
+
+def run_scan(cfg: SimConfig, net: network.NetworkConfig | None = None, *,
+             arrivals=None, counts=None, avail=None,
+             sampler: Callable[[int], PeriodDraws | ServiceSet] | None = None,
+             device=None) -> dict:
+    """Simulate one episode.  Returns avg_duration, std_duration, durations,
+    periods, finished, fallbacks, and the per-period history as stacked
+    numpy arrays (``totals`` instead when ``collect_history`` is False).
+
+    ``arrivals``/``counts`` replace the episode-static draws with an explicit
+    (n_services_total,) admission trace; ``avail`` adds a
+    (max_periods, n_services_total, k_max) bool availability stream;
+    ``sampler(period)`` replaces the per-period draws: a ``PeriodDraws``,
+    or a built ServiceSet (then the scenario processes draw from the
+    engine's own source).  The episode runs on ``device`` (default: the
+    card).
+    """
+    device = torch.device(device) if device is not None else default_device()
+    net = net or _default_net(cfg)
+    _check_run_inputs(cfg, arrivals, counts)
+    if arrivals is None:
+        arrivals, counts = _static_draws(cfg, net)
+    ep = _run_episode(cfg, net, arrivals, counts, avail, sampler, device)
+    out = {
+        "avg_duration": float(np.mean(ep.duration)),
+        "std_duration": float(np.std(ep.duration)),
+        "durations": [int(d) for d in ep.duration],
+        "periods": len(ep.history["all_done"]),
+        "finished": bool(np.all(ep.rounds_done >= cfg.rounds_required)),
+        "fallbacks": ep.fallbacks,
+    }
+    stacked = {k: v for k, v in ep.history.items() if k != "all_done"}
+    if cfg.collect_history:
+        out["history"] = stacked
+    else:
+        out["history"] = None
+        out["totals"] = {k: float(v) for k, v in _totals(stacked).items()}
+    return out
+
+
+def run_batch(cfg: SimConfig, seeds, net: network.NetworkConfig | None = None,
+              *, arrivals=None, counts=None, samplers=None,
+              device=None) -> dict:
+    """One episode per seed (``cfg`` with ``seed`` replaced), each with its
+    own warm state, stacked as the reference's vmapped ``run_batch``:
+    seeds, avg_duration (S,), std_duration (S,), durations (S, N),
+    finished (S,), and the history with every series (``all_done``
+    included) at its full ``max_periods`` length, the periods after an
+    episode stopped holding what the reference's scan computes there
+    (nothing active, nothing allocated, ``all_done`` True); or, without
+    ``collect_history``, ``periods`` (S,) and ``totals``.  Also
+    ``fallbacks`` (S,): warm-solver rescues per episode.
+
+    ``arrivals``/``counts`` are (S, N) admission traces, ``samplers`` one
+    per seed (see ``run_scan``).
+    """
+    device = torch.device(device) if device is not None else default_device()
+    net = net or _default_net(cfg)
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("run_batch needs at least one seed")
+    _check_run_inputs(cfg, arrivals, counts)
+    if samplers is not None and len(samplers) != len(seeds):
+        raise ValueError(f"got {len(samplers)} samplers for {len(seeds)} "
+                         f"seeds")
+    if arrivals is not None:
+        arrivals, counts = np.asarray(arrivals), np.asarray(counts)
+        want = (len(seeds), cfg.n_services_total)
+        if arrivals.shape != want or counts.shape != want:
+            raise ValueError(f"arrivals and counts must be (seeds, "
+                             f"n_services_total) = {want}, got "
+                             f"{arrivals.shape} and {counts.shape}")
+    episodes = []
+    for i, seed in enumerate(seeds):
+        cfg_i = dataclasses.replace(cfg, seed=seed)
+        arr, cnt = ((arrivals[i], counts[i]) if arrivals is not None
+                    else _static_draws(cfg_i, net))
+        episodes.append(_run_episode(
+            cfg_i, net, arr, cnt, None,
+            None if samplers is None else samplers[i], device))
+    duration = np.stack([ep.duration for ep in episodes]).astype(np.int32)
+    rounds_done = np.stack([ep.rounds_done for ep in episodes])
+    out = {
+        "seeds": seeds,
+        "avg_duration": duration.mean(axis=1),
+        "std_duration": duration.std(axis=1),
+        "durations": duration,
+        "finished": np.all(rounds_done >= cfg.rounds_required, axis=1),
+        "fallbacks": np.array([ep.fallbacks for ep in episodes]),
+    }
+    if cfg.collect_history:
+        out["history"] = {
+            k: np.stack([_pad_history(ep.history[k], k, cfg.max_periods)
+                         for ep in episodes])
+            for k in episodes[0].history}
+    else:
+        out["history"] = None
+        out["periods"] = np.array([len(ep.history["all_done"])
+                                   for ep in episodes], np.int32)
+        totals = [_totals(ep.history) for ep in episodes]
+        out["totals"] = {k: np.stack([t[k] for t in totals])
+                         for k in _AGG_KEYS}
+    return out
+
+
+def _pad_history(x: np.ndarray, key: str, max_periods: int) -> np.ndarray:
+    """A series of the periods that ran, in the reference's dtype, extended
+    to ``max_periods`` with the periods after every service finished: all
+    zero (no service active, b = f = 0, no clients, no rounds) but
+    ``all_done``, which stays True."""
+    x = x.astype(_HISTORY_DTYPES[key])
+    pad = np.full((max_periods - len(x), *x.shape[1:]), key == "all_done",
+                  x.dtype)
+    return np.concatenate([x, pad])

@@ -1,9 +1,10 @@
 """Carry state across from the JAX reference package.
 
-This system's parameters are its service sets, its network configuration
-and the warm solver's dual state; these helpers turn the reference
-package's values, handed over as numpy arrays or plain dicts, into this
-package's.  Nothing here imports the reference package.
+This system's parameters are its service sets, its network configuration,
+the warm solver's dual state, the auction's bid books and the scenario
+processes' states; these helpers turn the reference package's values,
+handed over as numpy arrays or plain dicts, into this package's.  Nothing
+here imports the reference package.
 """
 from __future__ import annotations
 
@@ -12,23 +13,24 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.auction import MultiBid
 from repro_torch.core.network import NetworkConfig
 from repro_torch.core.policy import WarmDualState
 from repro_torch.core.types import ServiceSet
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
 
 def service_set_from_arrays(alpha, t_comp, mask, alpha_ul=None, *,
                             device) -> ServiceSet:
     """A reference ServiceSet given as numpy arrays -> this package's, with
     the values unchanged (float32 alpha/t_comp/alpha_ul, bool mask)."""
-
-    def f32(x):
-        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
-
     return ServiceSet(
-        alpha=f32(alpha), t_comp=f32(t_comp),
+        alpha=_f32(alpha, device), t_comp=_f32(t_comp, device),
         mask=torch.as_tensor(np.array(mask, dtype=bool), device=device),
-        alpha_ul=None if alpha_ul is None else f32(alpha_ul))
+        alpha_ul=None if alpha_ul is None else _f32(alpha_ul, device))
 
 
 def warm_state_from_arrays(lam, fallbacks, *, device) -> WarmDualState:
@@ -50,3 +52,30 @@ def network_config_from_dict(d: dict) -> NetworkConfig:
             f"NetworkConfig fields differ: unknown {sorted(set(d) - names)}, "
             f"missing {sorted(names - set(d))}")
     return NetworkConfig(**d)
+
+
+def multibid_from_arrays(prices, demands, *, device) -> MultiBid:
+    """A reference ``MultiBid`` (prices, demands), (N, M) each -> this
+    package's, values unchanged."""
+    return MultiBid(prices=_f32(prices, device), demands=_f32(demands, device))
+
+
+def gauss_markov_state_from_arrays(z_s, z_c, *, device):
+    """The ``gauss_markov`` channel state (z_s (N, 1), z_c (N, K))."""
+    return _f32(z_s, device), _f32(z_c, device)
+
+
+def rayleigh_state_from_arrays(h_re, h_im, z_s=None, z_c=None, *, device):
+    """The ``rayleigh_block`` channel state (h_re, h_im (N, K)), with the
+    shadowing pair (z_s, z_c) when ``shadowing_rho`` is set."""
+    state = (_f32(h_re, device), _f32(h_im, device))
+    if (z_s is None) != (z_c is None):
+        raise ValueError("pass z_s and z_c together (or neither)")
+    if z_s is None:
+        return state
+    return state + gauss_markov_state_from_arrays(z_s, z_c, device=device)
+
+
+def gilbert_state_from_arrays(avail, *, device) -> torch.Tensor:
+    """The ``gilbert`` churn state: the (N, K) bool availability."""
+    return torch.as_tensor(np.array(avail, dtype=bool), device=device)

@@ -1,4 +1,5 @@
-"""Whole-market clearing in ONE launch: the ``market_clear`` kernel.
+"""Whole-market clearing in ONE launch: the ``market_clear`` kernel, and
+the auction's (N, M) demand grid: the ``mbdf_demand`` kernel.
 
 The complete safeguarded-Newton dual solve of
 ``disba.solve_lambda_newton_warm``: bracket top max_n p_max, warm or cold
@@ -8,6 +9,13 @@ seed, ``iters`` trips each reducing sum demand and sum slope over every row
 row.  The CUDA kernel is ``csrc/market_clear.cu``, a cooperative launch
 with one grid-wide barrier per trip; ``market_clear_plain`` repeats its
 arithmetic in PyTorch ops.
+
+``mbdf_demand`` evaluates the modified bandwidth demand d_n(p_m) of every
+service row at every price of its (ascending) bid grid: per (row, price) a
+bisection of q(f) = [(1 - a) + a / (1 + f)] * f*'(b) = p on
+[0, F_CEIL / max t^C], the opt-out at p >= p_max, and the Eq. 7 bandwidth
+at the root.  The CUDA kernel is ``csrc/mbdf_demand.cu``;
+``mbdf_demand_plain`` repeats its arithmetic in PyTorch ops.
 """
 from __future__ import annotations
 
@@ -17,7 +25,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dual_demand import NEG_INF, TINY, demand_slope_plain
+from repro_torch.kernels.dual_demand import (F_CEIL, NEG_INF, TINY,
+                                             demand_slope_plain)
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -118,3 +127,65 @@ def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
                        inner_iters, newton_inner_iters, grid, stream)
     _build.check(status, "market_clear")
     return b, f, lam
+
+
+# ---------------------------------------------------------------------------
+# The auction's (N, M) modified-demand grid.
+# ---------------------------------------------------------------------------
+
+def mbdf_demand_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
+                      prices: torch.Tensor, alpha_fair: float,
+                      iters: int = 48) -> torch.Tensor:
+    """Plain PyTorch version of the kernel -> demands (N, M).
+
+    A Python scalar over a tensor is a reciprocal and a product in PyTorch,
+    so the true divisions of the kernel (and of the TPU kernel) divide a
+    filled tensor instead."""
+    valid = alpha > 0.0
+    asum = torch.sum(alpha, dim=1, keepdim=True)                  # (N, 1)
+    tcmax = torch.amax(torch.where(valid, t_comp, NEG_INF), dim=1, keepdim=True)
+    active = asum > 0.0
+    f_hi = torch.where(active, torch.full_like(tcmax, F_CEIL)
+                       / torch.clamp(tcmax, min=TINY), 0.0)
+    a_fair = torch.full_like(prices, alpha_fair)
+    a3, t3 = alpha[:, None, :], t_comp[:, None, :]                # (N, 1, K)
+    lo = torch.zeros_like(prices)
+    hi = torch.broadcast_to(f_hi, prices.shape)
+    for _ in range(iters):
+        f = 0.5 * (lo + hi)
+        one_m = torch.clamp(1.0 - t3 * f[:, :, None], min=TINY)
+        s = torch.sum(a3 / (one_m * one_m), dim=2)
+        q = ((1.0 - alpha_fair) + a_fair / (1.0 + f)) \
+            * (1.0 / torch.clamp(s, min=TINY))
+        go_right = (q - prices) > 0.0
+        lo, hi = torch.where(go_right, f, lo), torch.where(go_right, hi, f)
+    f = 0.5 * (lo + hi)
+    p_max = torch.where(active, 1.0 / torch.clamp(asum, min=TINY), 0.0)
+    f = torch.where(prices >= p_max, 0.0, f)
+    one_m = torch.clamp(1.0 - t3 * f[:, :, None], min=TINY)
+    return torch.sum(a3 * f[:, :, None] / one_m, dim=2)
+
+
+@functools.cache
+def _mbdf_lib():
+    fn = _build.library("mbdf_demand").mbdf_demand_launch
+    fn.argtypes = ([_c_void_p] * 4 + [_c_int] * 3 + [_c_float] * 2 + [_c_int]
+                   + [_c_void_p])
+    fn.restype = _c_int
+    return fn
+
+
+def mbdf_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
+                     prices: torch.Tensor, alpha_fair: float,
+                     iters: int = 48) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream.  Inputs must already be
+    validated (``ops.mbdf_demand`` does it)."""
+    n, k = alpha.shape
+    m = prices.shape[1]
+    out = torch.empty((n, m), dtype=torch.float32, device=alpha.device)
+    stream = torch.cuda.current_stream(alpha.device).cuda_stream
+    status = _mbdf_lib()(alpha.data_ptr(), t_comp.data_ptr(),
+                         prices.data_ptr(), out.data_ptr(), n, k, m,
+                         1.0 - alpha_fair, alpha_fair, iters, stream)
+    _build.check(status, "mbdf_demand")
+    return out

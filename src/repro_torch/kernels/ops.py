@@ -14,9 +14,12 @@ import torch
 
 from repro_torch.kernels.bisect_alloc import bisect_alloc_cuda, bisect_alloc_plain
 from repro_torch.kernels.dual_demand import dual_demand_cuda, dual_demand_plain
-from repro_torch.kernels.market_clear import market_clear_cuda, market_clear_plain
+from repro_torch.kernels.market_clear import (market_clear_cuda,
+                                              market_clear_plain,
+                                              mbdf_demand_cuda,
+                                              mbdf_demand_plain)
 
-KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear")
+KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand")
 MAX_K = 1024  # clients per service the kernels hold in registers (32 x 32)
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
@@ -28,8 +31,10 @@ def reset_launches() -> None:
 
 
 def _on_cuda(name: str, alpha: torch.Tensor, t_comp: torch.Tensor,
+             grid: torch.Tensor | None = None,
              **vectors: torch.Tensor) -> bool:
-    """Validate a kernel's inputs; True for the CUDA path, False for CPU."""
+    """Validate a kernel's inputs; True for the CUDA path, False for CPU.
+    ``vectors`` are scalars or (N,); ``grid`` an (N, M) matrix."""
     if alpha.ndim != 2 or t_comp.shape != alpha.shape:
         raise ValueError(f"{name}: alpha and t_comp must share one (N, K) "
                          f"shape, got {tuple(alpha.shape)} and "
@@ -38,7 +43,13 @@ def _on_cuda(name: str, alpha: torch.Tensor, t_comp: torch.Tensor,
     if n < 1 or not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: need N >= 1 and 1 <= K <= {MAX_K}, got "
                          f"(N, K) = ({n}, {k})")
+    if grid is not None and (grid.ndim != 2 or grid.shape[0] != n
+                             or grid.shape[1] < 1):
+        raise ValueError(f"{name}: prices must be ({n}, M) with M >= 1, "
+                         f"got {tuple(grid.shape)}")
     tensors = {"alpha": alpha, "t_comp": t_comp, **vectors}
+    if grid is not None:
+        tensors["prices"] = grid
     for key, x in tensors.items():
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32, got {x.dtype}")
@@ -98,3 +109,16 @@ def market_clear(alpha: torch.Tensor, t_comp: torch.Tensor, b_total: float,
         LAUNCHES["market_clear"] += 1
         return out
     return market_clear_plain(alpha, t_comp, float(b_total), lam_prev, **kwargs)
+
+
+def mbdf_demand(alpha: torch.Tensor, t_comp: torch.Tensor,
+                prices: torch.Tensor, alpha_fair: float, *,
+                iters: int = 48) -> torch.Tensor:
+    """Modified bandwidth demand d_n(p_m) on an (N, M) price grid (ascending
+    in m) -> (N, M)."""
+    if _on_cuda("mbdf_demand", alpha, t_comp, grid=prices):
+        out = mbdf_demand_cuda(alpha, t_comp, prices, float(alpha_fair),
+                               iters)
+        LAUNCHES["mbdf_demand"] += 1
+        return out
+    return mbdf_demand_plain(alpha, t_comp, prices, float(alpha_fair), iters)

@@ -1,18 +1,25 @@
 """Stochastic scenario processes for the multi-period simulator.
 
-The registry mirrors ``repro.scenarios``; so far only the paper's defaults
-are ported (channel ``iid``, arrival ``poisson``, churn ``none``), and any
-other name raises a ValueError.
+The registry mirrors ``repro.scenarios``: channel ``iid``,
+``gauss_markov``, ``rayleigh_block``; arrival ``poisson``, ``periodic``,
+``batched``, ``mmpp``; churn ``none``, ``bernoulli``, ``gilbert``.  Every
+process draws through a ``Source`` (``base``), so a caller can inject the
+draws.
 """
 from __future__ import annotations
 
 from repro_torch.scenarios import arrival, channel, churn  # noqa: F401  (register)
-from repro_torch.scenarios.base import (KINDS, Process, ScenarioSpec, as_spec,
-                                        available, get_process, register, spec)
+from repro_torch.scenarios.base import (CHURN_SALT, FADING_SALT, INIT_SALT,
+                                        KINDS, STREAMS, ArraySource,
+                                        GeneratorSource, Process, ScenarioSpec,
+                                        Source, as_spec, available,
+                                        generator, get_process, register,
+                                        spec)
 
 __all__ = [
-    "KINDS", "Process", "ScenarioSpec", "as_spec", "available",
-    "get_process", "register", "spec",
+    "CHURN_SALT", "FADING_SALT", "INIT_SALT", "KINDS", "STREAMS",
+    "ArraySource", "GeneratorSource", "Process", "ScenarioSpec", "Source",
+    "as_spec", "available", "generator", "get_process", "register", "spec",
     "get_channel", "get_arrival", "get_churn",
 ]
 
@@ -28,5 +35,5 @@ def get_churn(sp, net) -> Process:
 
 
 def get_arrival(sp):
-    """Build an arrival sampler ``draw(generator, n, mean_interval)``."""
+    """Build an arrival sampler ``draw(source, n, mean_interval)``."""
     return get_process("arrival", as_spec(sp, default="poisson"))

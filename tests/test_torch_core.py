@@ -276,5 +276,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("core/fairness.py", "core/auction.py", "kernels/ops.py",
+                   "kernels/market_clear.py", "scenarios/base.py",
+                   "scenarios/arrival.py", "scenarios/channel.py",
+                   "scenarios/churn.py", "fl/simulator.py", "interop.py"):
+        assert f"src/repro_torch/{module}" in names, module
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

@@ -186,10 +186,20 @@ def test_kernel_backends_never_evaluate_the_plain_freq(monkeypatch, name, warm,
 
 
 def test_registry_options_and_unported_policy():
-    assert policy.available() == ("coop", "ec", "es", "pp")
+    """All five paper policies are registered now, ``selfish`` included
+    (the name dates from the slice that had not ported it)."""
+    assert policy.available() == j_policy.available() == (
+        "coop", "ec", "es", "pp", "selfish")
     assert policy.KNOWN_OPTIONS == j_policy.KNOWN_OPTIONS
-    with pytest.raises(ValueError, match="not yet ported"):
-        policy.get_policy("selfish")
+    assert (policy.STATEFUL_KNOWN_OPTIONS
+            == j_policy.STATEFUL_KNOWN_OPTIONS)
+    j, t = _pair(11)
+    b, f = policy.get_policy("selfish")(t, B)
+    jb, jf = j_policy.get_policy("selfish")(j, B)
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(f.numpy(), np.asarray(jf), rtol=1e-3, atol=1e-5)
+    with pytest.raises(ValueError, match="unknown policy"):
+        policy.get_policy("selfsh")
     with pytest.raises(ValueError, match="unknown option"):
         policy.get_policy("coop", alpha_fiar=0.3)
     with pytest.raises(ValueError, match="unknown policy"):

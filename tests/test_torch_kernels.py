@@ -25,7 +25,8 @@ from repro.kernels.market_clear import market_clear as j_market_clear
 from repro_torch.kernels import ops
 from repro_torch.kernels.bisect_alloc import bisect_alloc_plain
 from repro_torch.kernels.dual_demand import dual_demand_plain
-from repro_torch.kernels.market_clear import market_clear_plain
+from repro_torch.kernels.market_clear import (market_clear_plain,
+                                              mbdf_demand_plain)
 
 B = 10.0
 EDGE_SHAPES = [(5, 13), (9, 130), (13, 100), (21, 257)]
@@ -209,3 +210,17 @@ def test_cuda_market_clear_matches_plain():
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
     torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-5)
+
+
+@needs_cuda
+def test_cuda_mbdf_demand_matches_plain():
+    from repro_torch.core import auction
+    from repro_torch.core.types import ServiceSet
+
+    a, t = _cuda_market()
+    svc = ServiceSet(alpha=a, t_comp=t, mask=a > 0)
+    for alpha_fair in (0.0, 0.5, 1.0):
+        prices = auction.uniform_truthful_bids(svc, 5, alpha_fair).prices
+        got = ops.mbdf_demand(a, t, prices, alpha_fair)
+        want = mbdf_demand_plain(a, t, prices, alpha_fair)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

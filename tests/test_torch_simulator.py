@@ -7,6 +7,11 @@ the reference's own draws: the arrivals and client counts of
 inside the reference's period step (simulator.py:281-293).  Durations must
 be exactly equal; per-period b and f (``collect_alloc=True``) agree to
 rtol 1e-3 / atol 1e-4 and rtol 1e-3 / atol 1e-5.
+
+Episodes with correlated scenario processes, and ``run_batch``, take the
+reference's raw per-period draws and scenario draws instead
+(``test_torch_scenarios.jax_sampler``), since a rebuilding channel process
+builds the set from them.
 """
 import dataclasses
 
@@ -18,7 +23,9 @@ import torch
 from repro.core import network as j_network
 from repro.fl import simulator as j_sim
 from repro_torch import interop, scenarios
+from repro_torch.core import network
 from repro_torch.fl import simulator
+from test_torch_scenarios import jax_sampler
 
 CPU = torch.device("cpu")
 # Small episodes: 5 services arriving about one period apart, each needing
@@ -26,7 +33,7 @@ CPU = torch.device("cpu")
 SMALL = dict(n_services_total=5, rounds_required=150, p_arrive=1.0,
              max_periods=24, seed=3, collect_alloc=True)
 CASES = [("coop", False), ("coop", True), ("ec", False), ("es", False),
-         ("pp", False)]
+         ("pp", False), ("selfish", False)]
 
 
 @pytest.fixture(scope="module")
@@ -107,9 +114,18 @@ def test_own_draws_are_seeded_and_in_range():
     assert np.all(np.diff(arrivals) >= 0) and arrivals[0] >= 0
     assert counts.min() >= net.k_min and counts.max() <= simulator._k_cap(cfg)
     sampler = simulator.default_sampler(cfg, net, counts, CPU)
-    a, b = sampler(4), sampler(4)
-    assert torch.equal(a.alpha, b.alpha) and not torch.equal(a.alpha, sampler(5).alpha)
+
+    def built(period):
+        return network.services_from_draws(*sampler(period).services, net)[0]
+
+    a, b = built(4), built(4)
+    assert torch.equal(a.alpha, b.alpha) and not torch.equal(a.alpha, built(5).alpha)
     assert torch.equal(a.client_counts(), torch.as_tensor(counts))
+    # the scenario streams are seeded per period and stream
+    src4, src5 = sampler(4).source, sampler(5).source
+    assert torch.equal(src4.uniform("churn", (3, 2)), src4.uniform("churn", (3, 2)))
+    assert not torch.equal(src4.uniform("churn", (3, 2)), src5.uniform("churn", (3, 2)))
+    assert sampler(0).init is not None and sampler(1).init is None
 
 
 def test_run_scan_rejects_bad_inputs():
@@ -141,10 +157,165 @@ def test_avail_stream_masks_clients():
 
 
 def test_only_default_scenarios_are_ported():
-    assert scenarios.available("channel") == ("iid",)
-    assert scenarios.available("arrival") == ("poisson",)
-    assert scenarios.available("churn") == ("none",)
-    for kind, name in [("channel", "gauss_markov"), ("churn", "gilbert"),
-                       ("arrival", "mmpp")]:
+    """Every scenario process of the reference is registered now (the name
+    dates from the slice that ported only the defaults); unknown names and
+    parameters still raise."""
+    from repro import scenarios as j_scenarios
+
+    for kind in scenarios.KINDS:
+        assert scenarios.available(kind) == j_scenarios.available(kind)
+    assert scenarios.available("channel") == ("gauss_markov", "iid",
+                                              "rayleigh_block")
+    for kind, name in [("channel", "ar2"), ("churn", "markov3"),
+                       ("arrival", "hawkes")]:
         with pytest.raises(ValueError, match="unknown"):
             scenarios.get_process(kind, name)
+    with pytest.raises(ValueError, match="unknown parameter"):
+        scenarios.get_churn(scenarios.spec("gilbert", p_dorp=0.1), None)
+
+
+# ---------------------------------------------------------------------------
+# Correlated scenario processes and run_batch, on the reference's draws.
+# ---------------------------------------------------------------------------
+
+SCENARIO_CASES = [
+    dict(channel_process=scenarios.spec("gauss_markov", rho=0.9),
+         churn_process=scenarios.spec("gilbert", p_drop=0.2, p_return=0.4,
+                                      always_keep=1),
+         arrival_process="mmpp", policy="coop", warm_start=True),
+    dict(channel_process=scenarios.spec("rayleigh_block", rho=0.8,
+                                        shadowing_rho=0.9),
+         churn_process="bernoulli", arrival_process="batched",
+         policy="selfish"),
+    dict(channel_process="rayleigh_block", churn_process="none",
+         arrival_process="periodic", policy="es"),
+]
+
+
+def _j_spec(sp):
+    from repro import scenarios as j_scenarios
+
+    if isinstance(sp, str):
+        return sp
+    return j_scenarios.spec(sp.name, **sp.kwargs())
+
+
+def _j_cfg(**opts):
+    opts = dict(opts)
+    for key in ("channel_process", "churn_process", "arrival_process"):
+        if key in opts:
+            opts[key] = _j_spec(opts[key])
+    return j_sim.SimConfig(**opts)
+
+
+def _channel_name(opts):
+    sp = opts.get("channel_process", "iid")
+    return sp if isinstance(sp, str) else sp.name
+
+
+@pytest.mark.parametrize("opts", SCENARIO_CASES,
+                         ids=["gauss_markov-gilbert-mmpp-coop_warm",
+                              "rayleigh_shadow-bernoulli-batched-selfish",
+                              "rayleigh-periodic-es"])
+def test_run_scan_with_scenarios_matches_reference(opts):
+    opts = dict(SMALL, **opts)
+    ref = j_sim.run_scan(_j_cfg(**opts))
+    j_cfg = _j_cfg(**opts)
+    arrivals, counts = j_sim._static_draws(j_cfg, j_sim._default_net(j_cfg))
+    k = j_sim._k_cap(j_cfg)
+    sampler = jax_sampler(jax.random.key(opts["seed"] + 7), counts,
+                          opts["n_services_total"], k, _channel_name(opts))
+    got = simulator.run_scan(simulator.SimConfig(**opts), arrivals=arrivals,
+                             counts=counts, sampler=sampler, device=CPU)
+    assert got["durations"] == ref["durations"]
+    assert got["periods"] == ref["periods"]
+    assert got["finished"] == ref["finished"] and got["fallbacks"] == 0
+    h, rh = got["history"], ref["history"]
+    assert np.array_equal(h["rounds"], rh["rounds"])
+    assert np.array_equal(h["n_clients"], rh["n_clients"])
+    np.testing.assert_allclose(h["b"], rh["b"], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(h["f"], rh["f"], rtol=1e-3, atol=1e-5)
+
+
+def test_rebuilding_channel_needs_raw_draws(reference_draws):
+    arrivals, counts, sets = reference_draws
+    cfg = simulator.SimConfig(**dict(SMALL, channel_process="gauss_markov"))
+    with pytest.raises(ValueError, match="raw draws"):
+        simulator.run_scan(cfg, arrivals=arrivals, counts=counts,
+                           sampler=_sampler(sets), device=CPU)
+
+
+BATCH = dict(SMALL, max_periods=30, policy="coop", warm_start=True,
+             channel_process=scenarios.spec("gauss_markov", rho=0.9),
+             churn_process=scenarios.spec("gilbert", p_drop=0.1,
+                                          p_return=0.5),
+             arrival_process="mmpp")
+SEEDS = [3, 8]
+
+
+def _batch_inputs(opts):
+    j_cfg = _j_cfg(**opts)
+    arrivals, counts = j_sim._static_draws_batch(
+        j_cfg, j_sim._default_net(j_cfg), SEEDS)
+    k = j_sim._k_cap(j_cfg)
+    samplers = [jax_sampler(jax.random.key(s + 7), counts[i],
+                            opts["n_services_total"], k, _channel_name(opts))
+                for i, s in enumerate(SEEDS)]
+    return j_cfg, arrivals, counts, samplers
+
+
+@pytest.mark.parametrize("collect_history", [True, False])
+def test_run_batch_matches_reference(collect_history):
+    opts = dict(BATCH, collect_history=collect_history,
+                collect_alloc=collect_history)
+    j_cfg, arrivals, counts, samplers = _batch_inputs(opts)
+    ref = j_sim.run_batch(j_cfg, SEEDS)
+    got = simulator.run_batch(simulator.SimConfig(**opts), SEEDS,
+                              arrivals=arrivals, counts=counts,
+                              samplers=samplers, device=CPU)
+    assert set(got) - set(ref) == {"fallbacks"}
+    assert not np.any(got["fallbacks"])
+    assert got["seeds"] == ref["seeds"]
+    for key in ("durations", "finished", "avg_duration", "std_duration"):
+        assert got[key].dtype == ref[key].dtype, key
+        assert np.array_equal(got[key], ref[key]), key
+    if not collect_history:
+        assert got["history"] is None and ref["history"] is None
+        assert got["periods"].dtype == ref["periods"].dtype
+        assert np.array_equal(got["periods"], ref["periods"])
+        for key, val in ref["totals"].items():
+            assert got["totals"][key].dtype == val.dtype, key
+            np.testing.assert_allclose(got["totals"][key], val, rtol=1e-4)
+        return
+    h, rh = got["history"], ref["history"]
+    assert set(h) == set(rh)
+    for key, val in rh.items():
+        val = np.asarray(val)
+        assert h[key].shape == val.shape and h[key].dtype == val.dtype, key
+        if val.dtype == np.float32:
+            atol = 1e-4 if key == "b" else 1e-5
+            np.testing.assert_allclose(h[key], val, rtol=1e-3, atol=atol)
+        else:
+            assert np.array_equal(h[key], val), key
+    # some episode stopped early, and the reference's scan shows what the
+    # padded periods hold: nothing active, nothing allocated, all done
+    done = np.asarray(rh["all_done"])
+    assert done.any() and not done.all()
+
+
+def test_run_batch_rejects_bad_inputs():
+    cfg = simulator.SimConfig(n_services_total=3, max_periods=4)
+    with pytest.raises(ValueError, match="at least one seed"):
+        simulator.run_batch(cfg, [], device=CPU)
+    with pytest.raises(ValueError, match="together"):
+        simulator.run_batch(cfg, [0], arrivals=[[0, 0, 0]], device=CPU)
+    with pytest.raises(ValueError, match="samplers"):
+        simulator.run_batch(cfg, [0, 1], samplers=[None], device=CPU)
+    with pytest.raises(ValueError, match="seeds, n_services_total"):
+        simulator.run_batch(cfg, [0, 1], arrivals=np.zeros((1, 3)),
+                            counts=np.zeros((1, 3)), device=CPU)
+    out = simulator.run_batch(cfg, [0, 1], device=CPU)
+    assert out["durations"].shape == (2, 3)
+    assert out["history"]["all_done"].shape == (2, 4)
+    single = simulator.run_scan(dataclasses.replace(cfg, seed=1), device=CPU)
+    assert out["durations"][1].tolist() == single["durations"]
