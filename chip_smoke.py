@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's allocation path on one CUDA card.
+"""Drive the PyTorch port's allocation and serve paths on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -23,7 +23,36 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    bound (the larger of float32 operations over 67 TFLOP/s and bytes
    over 3.35 TB/s, counting about 5 operations per valid (row, client,
    trip), 6 for mbdf_demand's per price);
-4. the main paths, each driven with the launch counts set to 0 just
+4. the attention kernels (B5 flash_attention, B6 decode_attention)
+   against their plain versions on the card, in bfloat16 and float32:
+   B5 at gemma3-1b's prefill shape (B = 4, Hq = 4, Hkv = 1, S = 2048,
+   D = 256) with the local window of 1024 and global, and at a ragged
+   shape (B = 2, Hq = 8, Hkv = 2, S = 1100, D = 128); B6 at the decode
+   shape (cache 2080, valid_len 2079) global, on the local window's slice
+   of the cache (the last 1024 positions) and at a ragged valid_len
+   (1337).  Tolerances are the JAX kernel tests' (rtol = atol = 2e-5 in
+   float32, 2e-2 in bfloat16).  Per case: kernel, profiler, wrapper and
+   plain times as in phase 3, the time of one
+   F.scaled_dot_product_attention(enable_gqa=True) call on the same inputs
+   (library_ms; the port never calls it), and the bound: the larger of the
+   operations (4 D per live (query, key) pair, counted from the mask) over
+   989 TFLOP/s for bfloat16 or 67 TFLOP/s for float32, and the bytes of
+   q, the live k and v, and the output over 3.35 TB/s;
+5. the serve path (slice 3's main path), through
+   repro_torch.launch.serve.main: full-width gemma3-1b in bfloat16 from a
+   seeded init, batch 4, prompt 2048, 32 greedy tokens, after one short
+   warm-up serve.  Counted from 0 just before it: exactly 26
+   flash_attention and 26 x 31 = 806 decode_attention launches and no
+   other kernel; finite logits and a cache filled to 2079; then one more
+   decode step under the profiler (its device activities and busy time);
+6. the kernel path against the plain path end to end: full-width
+   gemma3-1b in float32 cut to 2 layers (one local, one global), one
+   parameter set on the card and on the CPU, batch 2, prompt 2048, 8
+   greedy tokens stepped in lockstep: last-position logits within
+   MODEL_TOL at every step and the same tokens (a flip at a near-tie is
+   reported with the CPU's top-2 gap and fails unless that gap is within
+   2 atol);
+7. the allocation paths, each driven with the launch counts set to 0 just
    before it and read just after:
    a. slice 1: run_scan episodes of coop (warm and cold), es, pp and ec
       at the paper's setting (SimConfig defaults), each with a kernel
@@ -38,12 +67,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    per episode: rounds and durations equal (see compare_episodes for the
    one allowed exception), per-period b and f within tolerance, no solver
    rescue, and the kernels each backend launched (none for "reference");
-5. the auction entry on the card: run_auction at 8192 services, M = 5,
+8. the auction entry on the card: run_auction at 8192 services, M = 5,
    B = 8192 MHz (b sums to B, charges cover the fairness cost, the same
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
-6. the kernels line: per kernel, its launches on the paths of phase 4
-   (summed), its deviation, times and bound.
+9. the kernels line: per kernel, its launches on the paths of phases 5
+   and 7 (summed), its deviation, times and bound.
 
 Tolerances are rtol and atol as in the CPU tests, but atol is never more
 than 1e-3 of the mean |value| of the output checked: at the market shape b
@@ -56,6 +85,10 @@ see check_surplus_split.
 
 The last line is {"ok": true, "device": {...}}.  The script needs a CUDA
 card and the repository's src/ beside it, and fails without either.
+TF32 is off for every float32 product (set in main and again in phase 6).
+The new slice's phases (4-6) run before the allocation paths, so a
+fault there shows within the first minutes; a "seconds" line before the
+kernels line gives each phase's wall time.
 """
 from __future__ import annotations
 
@@ -75,6 +108,7 @@ sys.path.insert(0, str(ROOT / "src"))
 DEVICE = "cuda"
 B_TOTAL = 10.0
 PEAK_F32_OPS = 67e12      # H100 SXM float32 outside the tensor cores, op/s
+PEAK_BF16_OPS = 989e12    # H100 SXM bf16 tensor cores, dense, op/s
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
 OPS_PER_CLIENT_TRIP = 5
 OPS_PER_CLIENT_TRIP_PRICE = 6   # mbdf_demand
@@ -89,13 +123,28 @@ KERNELS = {
     "dual_demand": "src/repro/kernels/dual_demand.py:94",
     "market_clear": "src/repro/kernels/market_clear.py:86",
     "mbdf_demand": "src/repro/kernels/market_clear.py:204",
+    "flash_attention": "src/repro/kernels/flash_attention.py:33",
+    "decode_attention": "src/repro/kernels/decode_attention.py:28",
 }
+ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # rtol = atol
+MODEL_TOL = 1e-4          # rtol = atol of the float32 end-to-end parity
 # Sizes (the phases above).
 KERNEL_SHAPES = ((8192, 32, 5), (8191, 45, 3))   # (N, K, M of mbdf_demand)
 MARKET_N = 8192
 PAPER = {}                   # SimConfig overrides of the paper's setting
 AUCTION_N, RERUN_N = 8192, 256
 BATCH_SEEDS = (0, 1, 2)
+# (B, Hq, Hkv, S, D, window) of B5; (B, Hq, Hkv, cache, D, valid_len, lo) of
+# B6, whose kernel sees the cache's positions [lo, valid_len).
+FLASH_CASES = {"local": (4, 4, 1, 2048, 256, 1024),
+               "global": (4, 4, 1, 2048, 256, 0),
+               "ragged": (2, 8, 2, 1100, 128, 0)}
+DECODE_CASES = {"global": (4, 4, 1, 2080, 256, 2079, 0),
+                "local": (4, 4, 1, 2080, 256, 2079, 1055),
+                "ragged": (4, 4, 1, 2080, 256, 1337, 0)}
+MAIN_CASE = "local"       # the kernels line: 22 of gemma3-1b's 26 layers
+SERVE = dict(arch="gemma3-1b", batch=4, prompt_len=2048, gen=32)
+PARITY = dict(n_layers=2, batch=2, prompt_len=2048, gen=8)
 
 
 def emit(obj) -> None:
@@ -141,9 +190,15 @@ def device_ms(fn, reps: int = 21, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def kernel_profiler_ms(fn, kernel: str, reps: int = 21) -> float:
-    """Mean device time of the CUDA kernel whose name contains ``kernel``
-    over ``reps`` calls, from the profiler's CUDA activity records."""
+def kernel_profiler_ms(fn, kernel: str, reps: int = 21,
+                       names: tuple[str, ...] = (),
+                       min_records: int | None = None) -> float:
+    """Mean device time per call of the CUDA kernels whose names contain
+    ``names`` (default ``{kernel}_kernel``; decode_attention launches a
+    split and a combine kernel) over ``reps`` calls, from the profiler's
+    CUDA activity records.  At least ``min_records`` (default reps // 2)
+    records of each must survive: the activity buffer drops some, and of
+    millisecond kernels most."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CUDA]
@@ -151,12 +206,17 @@ def kernel_profiler_ms(fn, kernel: str, reps: int = 21) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if f"{kernel}_kernel" in e.key]
-    # The activity buffer may drop a record; average over those it kept.
-    if len(rows) != 1 or not reps // 2 <= rows[0].count <= reps:
-        raise AssertionError(f"profiler saw {[(e.key, e.count) for e in rows]}"
-                             f" for {kernel}, expected {reps} launches")
-    return rows[0].device_time_total / rows[0].count / 1e3
+    total = 0.0
+    for name in names or (f"{kernel}_kernel",):
+        rows = [e for e in prof.key_averages() if name in e.key]
+        # The activity buffer may drop a record; average over those it kept.
+        least = reps // 2 if min_records is None else min_records
+        if len(rows) != 1 or not least <= rows[0].count <= reps:
+            raise AssertionError(f"profiler saw "
+                                 f"{[(e.key, e.count) for e in rows]} for "
+                                 f"{name}, expected {reps} launches")
+        total += rows[0].device_time_total / rows[0].count / 1e3
+    return total
 
 
 def _np64(x) -> np.ndarray:
@@ -223,8 +283,9 @@ def check_surplus_split(name: str, got_b, want_b, got_f, want_f) -> dict:
     return checks
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+def bound(ops: float, nbytes: float,
+          peak_ops: float = PEAK_F32_OPS) -> tuple[float, str]:
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -520,16 +581,21 @@ def batch_pair() -> dict:
     return row
 
 
-def drive_path(label: str, fn) -> dict:
+def drive_path(label: str, fn, keep: bool = False):
     """Run one main path with the launch counts set to 0 just before it,
-    and return the counts read just after."""
+    and return the counts read just after (with ``keep``, the path's
+    result instead; the counts are in PATH_LAUNCHES either way)."""
     from repro_torch.kernels import ops
 
     ops.reset_launches()
-    fn()
+    result = fn()
     launches = dict(ops.LAUNCHES)
+    PATH_LAUNCHES[label] = launches
     emit({"phase": "path", "path": label, "launches": launches})
-    return launches
+    return result if keep else launches
+
+
+PATH_LAUNCHES: dict[str, dict] = {}
 
 
 def path_slice1() -> None:
@@ -547,7 +613,7 @@ def path_selfish() -> None:
 
 
 def auction_phase() -> dict:
-    """Phase 5: the auction entry on the card against the same call on the
+    """Phase 8: the auction entry on the card against the same call on the
     CPU, and the prefix charges against the rerun."""
     from repro_torch.core import auction, fairness
     from repro_torch.core.types import ServiceSet
@@ -601,6 +667,237 @@ def auction_phase() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The serve path of gemma3-1b: attention kernels, serving, parity.
+# ---------------------------------------------------------------------------
+
+def _live_pairs(s_len: int, window: int) -> int:
+    """(query, key) pairs the causal mask, and the window if > 0, keep."""
+    if window <= 0:
+        return s_len * (s_len + 1) // 2
+    w = min(window, s_len)
+    return w * (w + 1) // 2 + (s_len - w) * w
+
+
+def _heads(gen, dtype, *shapes):
+    return [torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            for shape in shapes]
+
+
+def _sdpa_mask(s_len: int, window: int):
+    rows = torch.arange(s_len, device=DEVICE)[:, None]
+    cols = torch.arange(s_len, device=DEVICE)[None, :]
+    return (rows >= cols) & (rows - cols < window)
+
+
+def attention_row(name: str, case: str, dtype, kern, plain, library,
+                  work_ops: float, nbytes: float, names=()) -> dict:
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tol = ATTENTION_TOL[dtype]
+    err = (got.double() - want.double()).abs()
+    bad = err > tol + tol * want.double().abs()
+    if got.shape != want.shape or got.dtype != want.dtype or bad.any() \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}/{case}/{dtype}: {int(bad.sum())} "
+                             f"entries beyond rtol = atol = {tol}; max dev "
+                             f"{float(err.max())}")
+    peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+    bound_ms, bound_by = bound(work_ops, nbytes, peak)
+    row = {"name": name, "case": case, "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": float(err.max()), "rtol": tol, "atol": tol,
+           "ms": device_ms(kern),
+           "profiler_ms": kernel_profiler_ms(kern, name, names=names,
+                                             min_records=1),
+           "wrapper_ms": event_ms(kern), "plain_ms": event_ms(plain),
+           "library_ms": device_ms(library),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "gflop": work_ops / 1e9, "mbytes": nbytes / 1e6}
+    emit({"phase": "attention_vs_plain", **row})
+    return row
+
+
+def attention_phase() -> dict:
+    """Phase 4: B5 and B6 against their plain versions on the card."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = torch.finfo(dtype).bits // 8
+        for case, (b, hq, hkv, s_len, d, window) in FLASH_CASES.items():
+            q, k, v = _heads(gen, dtype, (b, hq, s_len, d),
+                             (b, hkv, s_len, d), (b, hkv, s_len, d))
+            mask = _sdpa_mask(s_len, window) if window else None
+            rows["flash_attention", case, dtype] = attention_row(
+                "flash_attention", case, dtype,
+                lambda: ops.attention(q, k, v, causal=True, window=window),
+                lambda: flash_attention_plain(q, k, v, causal=True,
+                                              window=window),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True),
+                4.0 * d * b * hq * _live_pairs(s_len, window),
+                elt * (2 * b * hq * s_len * d + 2 * b * hkv * s_len * d),
+                names=("flash_attention",))  # and flash_attention_mma
+        for case, (b, hq, hkv, cache, d, valid, lo) in DECODE_CASES.items():
+            q, k, v = _heads(gen, dtype, (b, hq, d), (b, cache, hkv, d),
+                             (b, cache, hkv, d))
+            kw, vw, n = k[:, lo:valid], v[:, lo:valid], valid - lo
+            kt, vt = kw.transpose(1, 2), vw.transpose(1, 2)
+            rows["decode_attention", case, dtype] = attention_row(
+                "decode_attention", case, dtype,
+                lambda: ops.attention_decode(q, kw, vw, n),
+                lambda: decode_attention_plain(q, kw, vw, n),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kt, vt, enable_gqa=True),
+                4.0 * d * b * hq * n,
+                elt * (2 * b * hq * d + 2 * b * hkv * n * d),
+                names=("decode_split_kernel", "decode_combine_kernel"))
+    return rows
+
+
+def serve_phase() -> dict:
+    """Phase 5: full-width gemma3-1b served through the port's entry point;
+    the launch counts of the counted run are checked by main."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", SERVE["arch"], "--no-reduced", "--batch",
+            str(SERVE["batch"]), "--prompt-len", str(SERVE["prompt_len"]),
+            "--temperature", "0", "--device", DEVICE]
+    serve.main(argv + ["--gen", "2"])          # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = drive_path("serve", lambda: serve.main(argv + ["--gen",
+                                                         str(SERVE["gen"])]),
+                     keep=True)
+    wall = time.perf_counter() - t0
+    out, info = res["tokens"], res["info"]
+    b, gen = SERVE["batch"], SERVE["gen"]
+    want_len = SERVE["prompt_len"] + gen - 1
+    if out.shape != (b, gen) or info["cache"]["len"] != want_len:
+        raise AssertionError(f"serve: tokens {tuple(out.shape)}, cache len "
+                             f"{info['cache']['len']}, expected ({b}, {gen}) "
+                             f"and {want_len}")
+    if not bool(torch.isfinite(info["logits"]).all()):
+        raise AssertionError("serve: non-finite logits")
+    profile = decode_profile(res["model"], res["params"], info["cache"],
+                             out[:, -1:])
+    row = {"arch": SERVE["arch"], "batch": b, "prompt_len": SERVE["prompt_len"],
+           "gen": gen, "dtype": "bfloat16", "prefill_s": info["t_prefill"],
+           "decode_steps": info["decode_steps"], "decode_s": info["t_decode"],
+           "decode_ms_per_step": 1e3 * info["t_decode"] / info["decode_steps"],
+           "decode_tokens_per_s": b * info["decode_steps"] / info["t_decode"],
+           "prefill_tokens_per_s": b * SERVE["prompt_len"] / info["t_prefill"],
+           "wall_s_with_init": wall, "cache_len": info["cache"]["len"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "decode_step_profile": profile}
+    emit({"phase": "serve", **row})
+    return row
+
+
+def decode_profile(model, params, cache, tok) -> dict:
+    """One more decode step (the cache has room for it) under the profiler:
+    the device activities it records (kernels, copies), their summed
+    device time, the top names, and the step's wall time (inflated by the
+    profiler; the serve row's decode ms per step is the unprofiled one).
+    Informational: the profiler may drop records."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = {}
+    for e in device:
+        entry = by_name.setdefault(e.name[:60], [0, 0.0])
+        entry[0] += 1
+        entry[1] += e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    busy_ms = sum(v[1] for v in by_name.values())
+    return {"device_activities": len(device), "device_busy_ms": busy_ms,
+            "profiled_wall_ms": wall_ms,
+            "top": [{"name": k, "count": v[0], "ms": v[1]} for k, v in top]}
+
+
+def parity_phase() -> dict:
+    """Phase 6: the kernel path on the card against the plain path on the
+    CPU, full width in float32 cut to 2 layers, greedy tokens in
+    lockstep."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(SERVE["arch"]),
+                              n_layers=PARITY["n_layers"], global_every=2,
+                              dtype="float32")
+    model = registry.build_model(cfg)
+    windows = [0 if cfg.is_global_layer(i) else cfg.sliding_window
+               for i in range(cfg.n_layers)]
+    cpu_params = model.init(0, device="cpu")
+    card_params = _to_device(cpu_params)
+    b, s_len, gen = PARITY["batch"], PARITY["prompt_len"], PARITY["gen"]
+    prompts = torch.randint(0, cfg.vocab_size, (b, s_len),
+                            generator=torch.Generator().manual_seed(3))
+    runs = {"card": (card_params, prompts.to(DEVICE)),
+            "cpu": (cpu_params, prompts)}
+    state = {}
+    for dev, (params, toks) in runs.items():
+        state[dev] = model.prefill(params, {"tokens": toks},
+                                   max_len=s_len + gen)
+    steps, flips = [], []
+    for step in range(gen + 1):
+        logits = {dev: state[dev][0][:, -1].double().cpu() for dev in state}
+        err = (logits["card"] - logits["cpu"]).abs()
+        bad = err > MODEL_TOL + MODEL_TOL * logits["cpu"].abs()
+        if bad.any() or not bool(torch.isfinite(logits["card"]).all()):
+            raise AssertionError(f"parity step {step}: {int(bad.sum())} logits "
+                                 f"beyond rtol = atol = {MODEL_TOL}; max dev "
+                                 f"{float(err.max())}")
+        steps.append(float(err.max()))
+        if step == gen:
+            break
+        toks = {dev: serve.sample_token(None, state[dev][0], 0.0)
+                for dev in state}
+        for row in torch.nonzero(toks["card"].cpu() != toks["cpu"])[:, 0]:
+            top2 = torch.topk(logits["cpu"][row], 2).values
+            gap = float(top2[0] - top2[1])
+            flips.append({"step": step, "row": int(row), "cpu_gap": gap})
+            if gap > 2 * MODEL_TOL:
+                raise AssertionError(f"parity step {step}: greedy tokens "
+                                     f"differ at row {int(row)} with a top-2 "
+                                     f"gap of {gap}")
+        tok = toks["cpu"]
+        for dev, (params, _) in runs.items():
+            state[dev] = model.decode_step(params, state[dev][1],
+                                           tok.to(state[dev][0].device))
+    row = {"arch": SERVE["arch"], "dtype": "float32",
+           "n_layers": cfg.n_layers, "windows": windows, "batch": b,
+           "prompt_len": s_len, "gen": gen, "rtol": MODEL_TOL,
+           "atol": MODEL_TOL, "max_dev_per_step": steps,
+           "max_dev": max(steps), "token_flips": flips}
+    emit({"phase": "parity", **row})
+    return row
+
+
+def _to_device(tree):
+    if isinstance(tree, list):
+        return [_to_device(x) for x in tree]
+    if isinstance(tree, dict):
+        return {key: _to_device(x) for key, x in tree.items()}
+    return tree.to(DEVICE)
+
+
 def card_info() -> tuple[str, str]:
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -622,12 +919,31 @@ def main() -> int:
     emit({"phase": "card", "name": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    clock = {"start": time.perf_counter()}
     emit({"phase": "build", "seconds": _build.build()})
+    clock["build"] = time.perf_counter()
 
     per_shape = {(n, k): kernel_phase(n, k, m) for n, k, m in KERNEL_SHAPES}
+    clock["allocation_kernels"] = time.perf_counter()
+    attention = attention_phase()
+    clock["attention_kernels"] = time.perf_counter()
 
     # --- the main paths, through the entry points a user calls -----------
-    paths = {"slice1": drive_path("slice1", path_slice1),
+    serve_phase()
+    from repro_torch import configs
+    n_layers = configs.get_config(SERVE["arch"]).n_layers
+    expected = {name: 0 for name in KERNELS}
+    expected.update(flash_attention=n_layers,
+                    decode_attention=n_layers * (SERVE["gen"] - 1))
+    if PATH_LAUNCHES["serve"] != expected:
+        raise AssertionError(f"serve launched {PATH_LAUNCHES['serve']}, "
+                             f"expected {expected}")
+    clock["serve"] = time.perf_counter()
+    parity_phase()
+    clock["parity"] = time.perf_counter()
+
+    paths = {"serve": PATH_LAUNCHES["serve"],
+             "slice1": drive_path("slice1", path_slice1),
              "selfish": drive_path("selfish", path_selfish),
              "run_batch": drive_path("run_batch", batch_pair)}
     launches = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
@@ -635,22 +951,32 @@ def main() -> int:
     missing = [name for name, count in launches.items() if count < 1]
     if missing:
         raise AssertionError(f"main paths never launched {missing}")
+    clock["allocation_paths"] = time.perf_counter()
 
     auction_phase()
+    clock["auction"] = time.perf_counter()
+    marks = list(clock.items())
+    emit({"phase": "seconds", **{name: t - marks[i][1]
+                                 for i, (name, t) in enumerate(marks[1:])}})
 
-    rows = per_shape[KERNEL_SHAPES[0][:2]]
+    rows = dict(per_shape[KERNEL_SHAPES[0][:2]])
+    errors = {name: max(per_shape[s][name]["max_abs_err"] for s in per_shape)
+              for name in rows}
+    for name in ("flash_attention", "decode_attention"):
+        rows[name] = attention[name, MAIN_CASE, torch.bfloat16]
+        errors[name] = max(row["max_abs_err"] for key, row in attention.items()
+                           if key[0] == name)
     print(smi, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{name}.cu", "replaces": where,
-         "launches": launches[name],
-         "max_abs_err": max(per_shape[s][name]["max_abs_err"]
-                            for s in per_shape),
+         "launches": launches[name], "max_abs_err": errors[name],
          "ms": rows[name]["ms"], "profiler_ms": rows[name]["profiler_ms"],
          "wrapper_ms": rows[name]["wrapper_ms"],
          "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"],
-         "bound_by": rows[name]["bound_by"], "library_ms": None}
+         "bound_by": rows[name]["bound_by"],
+         "library_ms": rows[name].get("library_ms")}
         for name, where in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

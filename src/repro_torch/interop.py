@@ -1,10 +1,10 @@
 """Carry state across from the JAX reference package.
 
 This system's parameters are its service sets, its network configuration,
-the warm solver's dual state, the auction's bid books and the scenario
-processes' states; these helpers turn the reference package's values,
-handed over as numpy arrays or plain dicts, into this package's.  Nothing
-here imports the reference package.
+the warm solver's dual state, the auction's bid books, the scenario
+processes' states and the model zoo's weights; these helpers turn the
+reference package's values, handed over as numpy arrays or plain dicts,
+into this package's.  Nothing here imports the reference package.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.core.auction import MultiBid
 from repro_torch.core.network import NetworkConfig
 from repro_torch.core.policy import WarmDualState
 from repro_torch.core.types import ServiceSet
+from repro_torch.models.config import ModelConfig
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -79,3 +80,31 @@ def rayleigh_state_from_arrays(h_re, h_im, z_s=None, z_c=None, *, device):
 def gilbert_state_from_arrays(avail, *, device) -> torch.Tensor:
     """The ``gilbert`` churn state: the (N, K) bool availability."""
     return torch.as_tensor(np.array(avail, dtype=bool), device=device)
+
+
+def causal_lm_params_from_arrays(tree: dict, cfg: ModelConfig, *,
+                                 device) -> dict:
+    """The JAX ``CausalLM.init`` tree of a dense model, as numpy arrays ->
+    this package's parameters, values unchanged (float32).  The JAX tree
+    stacks the layers on a leading axis under ``"blocks"``; the port keeps
+    a list of per-layer dicts.  MoE trees (``"pairs"``, ``"lead"``) raise."""
+    extra = set(tree) - {"embed", "ln_f", "unembed", "blocks"}
+    if extra:
+        raise NotImplementedError(f"parameter groups {sorted(extra)} are not "
+                                  f"yet ported")
+
+    def leaf(x):
+        return _f32(x, device)
+
+    def layer(sub, i):
+        return {key: layer(x, i) if isinstance(x, dict) else leaf(x[i])
+                for key, x in sub.items()}
+
+    blocks = tree["blocks"]
+    n_layers = len(np.asarray(blocks["ln1"]))
+    if n_layers != cfg.n_layers:
+        raise ValueError(f"tree has {n_layers} layers, config {cfg.n_layers}")
+    params = {key: leaf(tree[key]) for key in ("embed", "ln_f", "unembed")
+              if key in tree}
+    params["blocks"] = [layer(blocks, i) for i in range(n_layers)]
+    return params

@@ -1,26 +1,35 @@
-"""Dispatch wrappers for the allocation kernels.
+"""Dispatch wrappers for the allocation and attention kernels.
 
 The device of the tensors decides the path: a CUDA tensor launches the
 hand-written kernel (and raises if it cannot), a CPU tensor takes the plain
 PyTorch version beside the kernel.  There is no fallback from one to the
 other and no switch to force either.  Every wrapper checks device, dtype
-(float32), shape and contiguity first, and counts its kernel launches in
-``LAUNCHES`` (a plain integer per kernel, bumped only where the kernel is
-launched), so a run can show which kernels its main path went through.
+(float32 for the allocation kernels, float32 or bfloat16 for attention),
+shape and layout first, and counts its kernel launches in ``LAUNCHES`` (a
+plain integer per kernel, bumped only where the kernel is launched), so a
+run can show which kernels its main path went through.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.bisect_alloc import bisect_alloc_cuda, bisect_alloc_plain
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_plain)
 from repro_torch.kernels.dual_demand import dual_demand_cuda, dual_demand_plain
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.market_clear import (market_clear_cuda,
                                               market_clear_plain,
                                               mbdf_demand_cuda,
                                               mbdf_demand_plain)
 
-KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand")
+KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
+                "flash_attention", "decode_attention")
 MAX_K = 1024  # clients per service the kernels hold in registers (32 x 32)
+HEAD_DIMS = (32, 64, 128, 256)     # head dims the attention kernels compile
+DECODE_GROUPS = (1, 2, 4, 8)       # query heads per KV head of decode
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
@@ -122,3 +131,91 @@ def mbdf_demand(alpha: torch.Tensor, t_comp: torch.Tensor,
         LAUNCHES["mbdf_demand"] += 1
         return out
     return mbdf_demand_plain(alpha, t_comp, prices, float(alpha_fair), iters)
+
+
+def _check_heads(name: str, tensors: dict, d: int) -> bool:
+    """Validate the attention tensors' dtype, device and layout; True for
+    the CUDA path, False for CPU."""
+    first = next(iter(tensors.values()))
+    if first.dtype not in ATTENTION_DTYPES:
+        raise TypeError(f"{name}: need float32 or bfloat16, got {first.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    for key, x in tensors.items():
+        if x.dtype != first.dtype:
+            raise TypeError(f"{name}: {key} is {x.dtype}, not {first.dtype}")
+        if x.device != first.device:
+            raise ValueError(f"{name}: {key} is on {x.device}, not "
+                             f"{first.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}: {key}'s head dim must be contiguous")
+    if first.device.type == "cuda":
+        return True
+    if first.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {first.device}")
+
+
+def _check_rows_aligned(name: str, tensors: dict) -> None:
+    """The tensor-core path reads bf16 rows 16 bytes at a time: every
+    pointer and (batch, head, position) stride must keep rows 16-byte
+    aligned."""
+    for key, x in tensors.items():
+        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1]):
+            raise ValueError(f"{name}: {key}'s rows must be 16-byte aligned "
+                             f"(strides {x.stride()})")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal / sliding-window GQA over a whole sequence (prefill).
+    q (B, Hq, S, D), k and v (B, Hkv, S, D), any (batch, head, position)
+    strides -> (B, Hq, S, D) in q's dtype and layout."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"attention: need q (B, Hq, S, D) and k, v "
+                         f"(B, Hkv, S, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or s < 1:
+        raise ValueError(f"attention: k and v {tuple(k.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    if k.shape[1] < 1 or hq % k.shape[1]:
+        raise ValueError(f"attention: Hq {hq} is not a multiple of Hkv "
+                         f"{k.shape[1]}")
+    if window < 0:
+        raise ValueError(f"attention: window must be >= 0, got {window}")
+    if _check_heads("attention", {"q": q, "k": k, "v": v}, d):
+        if q.dtype == torch.bfloat16:
+            _check_rows_aligned("attention", {"q": q, "k": k, "v": v})
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: int) -> torch.Tensor:
+    """One query token per sequence against a KV cache: q (B, Hq, D), k and
+    v (B, S, Hkv, D) with any (batch, position, head) strides; the first
+    ``valid_len`` keys (a host int, 1 <= valid_len <= S) take part ->
+    (B, Hq, D) in q's dtype."""
+    if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"attention_decode: need q (B, Hq, D) and k, v "
+                         f"(B, S, Hkv, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, d) or hkv < 1 or hq % hkv:
+        raise ValueError(f"attention_decode: k and v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if hq // hkv not in DECODE_GROUPS:
+        raise ValueError(f"attention_decode: {hq // hkv} query heads per KV "
+                         f"head, not in {DECODE_GROUPS}")
+    if isinstance(valid_len, torch.Tensor) or not 1 <= valid_len <= s:
+        raise ValueError(f"attention_decode: valid_len must be a host int in "
+                         f"[1, {s}], got {valid_len!r}")
+    if _check_heads("attention_decode", {"q": q, "k": k, "v": v}, d):
+        out = decode_attention_cuda(q, k, v, int(valid_len))
+        LAUNCHES["decode_attention"] += 1
+        return out
+    return decode_attention_plain(q, k, v, int(valid_len))

@@ -224,3 +224,279 @@ def test_cuda_mbdf_demand_matches_plain():
         got = ops.mbdf_demand(a, t, prices, alpha_fair)
         want = mbdf_demand_plain(a, t, prices, alpha_fair)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels (B5 flash_attention, B6 decode_attention): plain versions
+# against the Pallas kernels in interpret mode and against ``ref.py``, on
+# ``tests/test_kernels.py``'s shape matrix with its tolerances (float32
+# rtol = atol = 2e-5, bfloat16 2e-2).  Inputs are drawn with numpy and cast
+# to bfloat16 the same way (round to nearest even) in both packages.  Ragged
+# lengths, which the Pallas kernels refuse (their block-divisibility
+# asserts), are held against ``ref.py`` only.
+# ---------------------------------------------------------------------------
+
+from repro.kernels import ref as j_ref  # noqa: E402
+from repro.kernels.decode_attention import \
+    decode_attention as j_decode_attention  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as j_flash_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    decode_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention_plain  # noqa: E402
+
+ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _heads(seed, dtype, *shapes):
+    """numpy normals of each shape, as (jax array, torch tensor) pairs of
+    ``dtype``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        x = rng.standard_normal(shape).astype(np.float32)
+        out.append((jnp.asarray(x, getattr(jnp, dtype)),
+                    torch.as_tensor(x).to(getattr(torch, dtype))))
+    return out
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (2, 4, 2, 256, 64),
+    (1, 8, 1, 512, 128),   # MQA
+    (2, 2, 2, 128, 256),   # MHA, gemma head_dim
+    (1, 4, 4, 384, 64),    # 3 blocks of 128
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_causal(b, hq, hkv, s, d, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _heads(10, dtype, (b, hq, s, d),
+                                          (b, hkv, s, d), (b, hkv, s, d))
+    got = ops.attention(tq, tk, tv, causal=True)
+    _close(got, j_flash_attention(jq, jk, jv, causal=True, interpret=True),
+           dtype)
+    _close(got, j_ref.flash_attention_ref(jq, jk, jv, causal=True), dtype)
+
+
+@pytest.mark.parametrize("window", [32, 128, 1024])
+def test_flash_attention_plain_matches_pallas_window(window):
+    (jq, tq), (jk, tk), (jv, tv) = _heads(11, "float32", (1, 4, 512, 64),
+                                          (1, 1, 512, 64), (1, 1, 512, 64))
+    got = ops.attention(tq, tk, tv, causal=True, window=window)
+    kw = dict(causal=True, window=window)
+    _close(got, j_flash_attention(jq, jk, jv, interpret=True, **kw), "float32")
+    _close(got, j_ref.flash_attention_ref(jq, jk, jv, **kw), "float32")
+
+
+def test_flash_attention_plain_matches_pallas_non_causal():
+    (jq, tq), (jk, tk), (jv, tv) = _heads(12, "float32", (2, 2, 256, 64),
+                                          (2, 2, 256, 64), (2, 2, 256, 64))
+    got = ops.attention(tq, tk, tv, causal=False)
+    _close(got, j_flash_attention(jq, jk, jv, causal=False, interpret=True),
+           "float32")
+    _close(got, j_ref.flash_attention_ref(jq, jk, jv, causal=False), "float32")
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,causal", [
+    (1, 4, 2, 100, 64, 0, True),
+    (2, 8, 2, 300, 128, 0, True),     # the chip's ragged shape, shorter
+    (1, 4, 1, 77, 32, 16, True),      # reduced gemma3-1b, window binds
+    (1, 4, 1, 1100, 256, 1024, True),
+    (2, 2, 2, 130, 64, 40, False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_ragged_matches_ref(b, hq, hkv, s, d, window,
+                                                  causal, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _heads(13, dtype, (b, hq, s, d),
+                                          (b, hkv, s, d), (b, hkv, s, d))
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    _close(got, j_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                          window=window), dtype)
+
+
+def test_flash_attention_takes_strided_views():
+    """The model hands in (B, S, H, D) tensors transposed to (B, H, S, D);
+    the result equals the one from contiguous copies."""
+    (_, tq), (_, tk), (_, tv) = _heads(14, "float32", (2, 40, 4, 32),
+                                       (2, 40, 2, 32), (2, 40, 2, 32))
+    views = [x.transpose(1, 2) for x in (tq, tk, tv)]
+    got = ops.attention(*views, causal=True, window=8)
+    want = ops.attention(*(x.contiguous() for x in views), causal=True,
+                         window=8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,valid", [
+    (2, 8, 2, 512, 64, 512),
+    (2, 8, 2, 512, 64, 317),   # partial cache
+    (1, 4, 1, 2048, 128, 1500),
+    (4, 4, 4, 256, 256, 100),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_matches_pallas(b, hq, hkv, s, d, valid, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _heads(15, dtype, (b, hq, d),
+                                          (b, s, hkv, d), (b, s, hkv, d))
+    got = ops.attention_decode(tq, tk, tv, valid)
+    _close(got, j_decode_attention(jq, jk, jv, jnp.int32(valid), block_k=256,
+                                   interpret=True), dtype)
+    _close(got, j_ref.decode_attention_ref(jq, jk, jv, jnp.int32(valid)),
+           dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,valid", [
+    (2, 8, 2, 300, 64, 299),
+    (4, 4, 1, 2080, 256, 2079),   # gemma3-1b's decode shape
+    (1, 8, 1, 77, 32, 1),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_ragged_matches_ref(b, hq, hkv, s, d, valid,
+                                                   dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _heads(16, dtype, (b, hq, d),
+                                          (b, s, hkv, d), (b, s, hkv, d))
+    got = ops.attention_decode(tq, tk, tv, valid)
+    _close(got, j_ref.decode_attention_ref(jq, jk, jv, jnp.int32(valid)),
+           dtype)
+
+
+def test_decode_attention_window_slice_is_the_windowed_mask():
+    """A local layer hands the kernel the cache's last ``window`` filled
+    positions: the same as JAX's mask q_pos - kv_pos < window at q_pos =
+    valid_len - 1 over the whole cache."""
+    from repro.models import layers as j_layers
+
+    s, valid, window = 64, 50, 16
+    (jq, tq), (jk, tk), (jv, tv) = _heads(17, "float32", (2, 4, 32),
+                                          (2, s, 1, 32), (2, s, 1, 32))
+    lo = valid - window
+    got = ops.attention_decode(tq, tk[:, lo:valid], tv[:, lo:valid], window)
+    mask = j_layers.make_attention_mask(1, s, valid - 1, True, window,
+                                        kv_valid_len=valid)
+    want = j_layers.attention(jq[:, None], jk, jv, mask)[:, 0]
+    _close(got, want, "float32")
+
+
+def test_cpu_attention_takes_the_plain_path_and_launches_nothing():
+    ops.reset_launches()
+    (_, tq), (_, tk), (_, tv) = _heads(18, "bfloat16", (1, 4, 33, 64),
+                                       (1, 2, 33, 64), (1, 2, 33, 64))
+    assert torch.equal(ops.attention(tq, tk, tv, window=8),
+                       flash_attention_plain(tq, tk, tv, window=8))
+    q1, kc, vc = tq[:, :, 0], tk.transpose(1, 2), tv.transpose(1, 2)
+    got = ops.attention_decode(q1, kc, vc, 20)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, decode_attention_plain(q1, kc, vc, 20))
+    assert ops.LAUNCHES == {name: 0 for name in ops.KERNEL_NAMES}
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("float64", TypeError),
+    ("mixed_dtype", TypeError),
+    ("head_dim", ValueError),
+    ("groups", ValueError),
+    ("lengths", ValueError),
+    ("strided_head_dim", ValueError),
+    ("window", ValueError),
+])
+def test_attention_rejects_what_the_kernel_does_not_take(bad, error):
+    (_, q), (_, k), (_, v) = _heads(19, "float32", (1, 4, 16, 32),
+                                    (1, 2, 16, 32), (1, 2, 16, 32))
+    window = 0
+    if bad == "float64":
+        q, k, v = q.double(), k.double(), v.double()
+    elif bad == "mixed_dtype":
+        k = k.to(torch.bfloat16)
+    elif bad == "head_dim":
+        q, k, v = q[..., :24], k[..., :24], v[..., :24]
+    elif bad == "groups":
+        k, v = k[:, :1].expand(1, 3, 16, 32), v[:, :1].expand(1, 3, 16, 32)
+    elif bad == "lengths":
+        k, v = k[:, :, :15], v[:, :, :15]
+    elif bad == "strided_head_dim":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        window = -1
+    with pytest.raises(error):
+        ops.attention(q, k, v, window=window)
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("valid_zero", ValueError),
+    ("valid_past_cache", ValueError),
+    ("valid_tensor", ValueError),
+    ("groups", ValueError),
+    ("bf16_mixed", TypeError),
+    ("shape", ValueError),
+])
+def test_attention_decode_rejects_what_the_kernel_does_not_take(bad, error):
+    (_, q), (_, k), (_, v) = _heads(20, "float32", (2, 4, 32),
+                                    (2, 16, 2, 32), (2, 16, 2, 32))
+    valid = 5
+    if bad == "valid_zero":
+        valid = 0
+    elif bad == "valid_past_cache":
+        valid = 17
+    elif bad == "valid_tensor":
+        valid = torch.tensor(5, dtype=torch.int32)
+    elif bad == "groups":            # 16 query heads per KV head
+        q = torch.zeros((2, 32, 32))
+    elif bad == "bf16_mixed":
+        q = q.to(torch.bfloat16)
+    else:
+        v = v[:, :, :1]
+    with pytest.raises(error):
+        ops.attention_decode(q, k, v, valid)
+
+
+def test_tensor_core_path_requires_16_byte_rows():
+    """The bf16 flash-attention kernel reads rows 16 bytes at a time; the
+    check runs before a CUDA launch and is exercised here on CPU tensors."""
+    x = torch.zeros((1, 2, 8, 40), dtype=torch.bfloat16)
+    ops._check_rows_aligned("attention", {"q": x[..., :32]})  # rows of 80 B
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check_rows_aligned("attention", {"q": x[..., 1:33]})
+    y = torch.zeros((1, 2, 8, 36), dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check_rows_aligned("attention", {"k": y})
+    ops._check_rows_aligned("attention",
+                            {"v": torch.zeros((1, 8, 2, 32)).transpose(1, 2)})
+
+
+def _cuda_heads(seed, dtype, *shapes):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in shapes]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (4, 4, 1, 2048, 256, 1024), (4, 4, 1, 2048, 256, 0),
+    (2, 8, 2, 1100, 128, 0), (1, 4, 1, 77, 32, 16)])
+def test_cuda_flash_attention_matches_plain(dtype, b, hq, hkv, s, d, window):
+    q, k, v = _cuda_heads(0, dtype, (b, hq, s, d), (b, hkv, s, d),
+                          (b, hkv, s, d))
+    tol = ATTN_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    torch.testing.assert_close(
+        ops.attention(q, k, v, window=window),
+        flash_attention_plain(q, k, v, window=window), **tol)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,valid,lo", [
+    (4, 4, 1, 2080, 256, 2079, 0), (4, 4, 1, 2080, 256, 2079, 1055),
+    (2, 8, 2, 512, 64, 317, 0), (1, 8, 1, 77, 32, 1, 0)])
+def test_cuda_decode_attention_matches_plain(dtype, b, hq, hkv, s, d, valid,
+                                             lo):
+    q, k, v = _cuda_heads(1, dtype, (b, hq, d), (b, s, hkv, d),
+                          (b, s, hkv, d))
+    tol = ATTN_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    torch.testing.assert_close(
+        ops.attention_decode(q, k[:, lo:valid], v[:, lo:valid], valid - lo),
+        decode_attention_plain(q, k[:, lo:valid], v[:, lo:valid], valid - lo),
+        **tol)
