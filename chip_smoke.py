@@ -8,6 +8,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 1. the card: its name, and name and power limit from nvidia-smi;
 2. build the CUDA kernels from src/repro_torch/csrc (seconds printed; one
    nvcc per source, all started together);
+2a. the mLSTM kernel (B7 mlstm_chunk) against its plain version on the
+   card, in bfloat16 and float32, with the JAX kernel test's inputs (k /
+   sqrt(Dh), i ~ N(0, 0.5), f ~ N(2, 0.5)) and tolerances (rtol = atol =
+   5e-4 float32, 5e-2 bfloat16) on y and the final C, n and m: the serve
+   shape (B = 4, H = 4, S = 2048, Dh = 1024) from the zero state, a ragged
+   shape (2, 2, 1100, 128), and a carry (the serve shape's first 1000
+   positions, then the rest from the state they end in, against the whole
+   sequence).  Times as in phase 4, no library call (library_ms null), and
+   the bound: 4 Dh (Dh + 64) operations per (position, head) over the
+   peak for the type, against the inputs, y and the state;
+2b. the xLSTM serve path (slice 4's main path), through
+   repro_torch.launch.serve.main: full-width xlstm-1.3b in bfloat16 from a
+   seeded init, batch 4, prompt 2048, 32 greedy tokens, after a warm-up
+   serve of a 256-token prompt.  Counted from 0 just before it: exactly 42
+   mlstm_chunk launches (one per mLSTM layer; decode steps run the plain
+   recurrent step, as the JAX model does) and no other kernel; finite
+   logits and a cache length of 2079; peak memory, one profiled decode
+   step, and one mLSTM and one sLSTM block timed over the prompt.  Then
+   one no-cache forward of the same prompts, itself a main path: again
+   exactly 42 launches, and its last logits within 5e-2 of the prefill's;
+2c. the xLSTM kernel path against the plain path end to end: full-width
+   xlstm-1.3b in float32 cut to 8 layers (one super-block, 7 mLSTM + 1
+   sLSTM), batch 2, prompt 1024, 8 greedy tokens in lockstep, as phase 6;
 3. every kernel against its plain PyTorch version on the card, at the
    market shape (N = 8192 services, K = 32 clients, first 10% inactive,
    sample_services on a generator seeded 5, warm seed = cold price x 1.03)
@@ -43,7 +66,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    seeded init, batch 4, prompt 2048, 32 greedy tokens, after one short
    warm-up serve.  Counted from 0 just before it: exactly 26
    flash_attention and 26 x 31 = 806 decode_attention launches and no
-   other kernel; finite logits and a cache filled to 2079; then one more
+   other kernel (no mlstm_chunk); finite logits and a cache filled to 2079; then one more
    decode step under the profiler (its device activities and busy time);
 6. the kernel path against the plain path end to end: full-width
    gemma3-1b in float32 cut to 2 layers (one local, one global), one
@@ -71,8 +94,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    B = 8192 MHz (b sums to B, charges cover the fairness cost, the same
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
-9. the kernels line: per kernel, its launches on the paths of phases 5
-   and 7 (summed), its deviation, times and bound.
+9. the kernels line: per kernel, its launches on the paths of phases 2b,
+   5 and 7 (summed), its deviation, times and bound.
 
 Tolerances are rtol and atol as in the CPU tests, but atol is never more
 than 1e-3 of the mean |value| of the output checked: at the market shape b
@@ -83,12 +106,14 @@ auction allocation gives each period's surplus to the services bidding at
 the clearing price, which absorb every other service's float deviation:
 see check_surplus_split.
 
-The last line is {"ok": true, "device": {...}}.  The script needs a CUDA
-card and the repository's src/ beside it, and fails without either.
+The last line is {"ok": true, "device": {...}}; every JSON line is also
+written to build/chip_smoke.jsonl.  The script needs a CUDA card and the
+repository's src/ beside it, and fails without either.
 TF32 is off for every float32 product (set in main and again in phase 6).
-The new slice's phases (4-6) run before the allocation paths, so a
-fault there shows within the first minutes; a "seconds" line before the
-kernels line gives each phase's wall time.
+Slice 4's phases (2a-2c) run right after the build and slice 3's (4-6)
+before the allocation paths, so a fault in either shows within the first
+minutes; a "seconds" line before the kernels line gives each phase's wall
+time.
 """
 from __future__ import annotations
 
@@ -125,8 +150,11 @@ KERNELS = {
     "mbdf_demand": "src/repro/kernels/market_clear.py:204",
     "flash_attention": "src/repro/kernels/flash_attention.py:33",
     "decode_attention": "src/repro/kernels/decode_attention.py:28",
+    "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:27",
 }
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # rtol = atol
+MLSTM_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}      # rtol = atol
+LOG = ROOT / "build" / "chip_smoke.jsonl"   # every emitted line
 MODEL_TOL = 1e-4          # rtol = atol of the float32 end-to-end parity
 # Sizes (the phases above).
 KERNEL_SHAPES = ((8192, 32, 5), (8191, 45, 3))   # (N, K, M of mbdf_demand)
@@ -145,10 +173,23 @@ DECODE_CASES = {"global": (4, 4, 1, 2080, 256, 2079, 0),
 MAIN_CASE = "local"       # the kernels line: 22 of gemma3-1b's 26 layers
 SERVE = dict(arch="gemma3-1b", batch=4, prompt_len=2048, gen=32)
 PARITY = dict(n_layers=2, batch=2, prompt_len=2048, gen=8)
+# (B, H, S, Dh, split) of B7: the carry case runs [0, split) and then
+# [split, S) from the state the first half ends in.
+MLSTM_CASES = {"serve": (4, 4, 2048, 1024, 0),
+               "ragged": (2, 2, 1100, 128, 0),
+               "carry": (4, 4, 2048, 1024, 1000)}
+XLSTM_SERVE = dict(arch="xlstm-1.3b", batch=4, prompt_len=2048, gen=32,
+                   warmup_prompt_len=256)
+XLSTM_PARITY = dict(n_layers=8, batch=2, prompt_len=1024, gen=8)
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and append it to LOG: the whole record of a
+    run, where a terminal may keep only its end."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def event_ms(fn, reps: int = 21, warmup: int = 3) -> float:
@@ -690,22 +731,30 @@ def _sdpa_mask(s_len: int, window: int):
     return (rows >= cols) & (rows - cols < window)
 
 
+def _max_err(got, want, tol: float, label: str) -> float:
+    """Raise unless |got - want| <= tol + tol |want| and got is finite, of
+    want's shape and dtype; returns the largest deviation."""
+    err = (got.double() - want.double()).abs()
+    bad = err > tol + tol * want.double().abs()
+    if got.shape != want.shape or got.dtype != want.dtype or bad.any() \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: {int(bad.sum())} entries beyond "
+                             f"rtol = atol = {tol}; max dev "
+                             f"{float(err.max())}; shapes {tuple(got.shape)}"
+                             f" {tuple(want.shape)}")
+    return float(err.max())
+
+
 def attention_row(name: str, case: str, dtype, kern, plain, library,
                   work_ops: float, nbytes: float, names=()) -> dict:
     got, want = kern(), plain()
     torch.cuda.synchronize()
     tol = ATTENTION_TOL[dtype]
-    err = (got.double() - want.double()).abs()
-    bad = err > tol + tol * want.double().abs()
-    if got.shape != want.shape or got.dtype != want.dtype or bad.any() \
-            or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{name}/{case}/{dtype}: {int(bad.sum())} "
-                             f"entries beyond rtol = atol = {tol}; max dev "
-                             f"{float(err.max())}")
+    max_dev = _max_err(got, want, tol, f"{name}/{case}/{dtype}")
     peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
     bound_ms, bound_by = bound(work_ops, nbytes, peak)
     row = {"name": name, "case": case, "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": float(err.max()), "rtol": tol, "atol": tol,
+           "max_abs_err": max_dev, "rtol": tol, "atol": tol,
            "ms": device_ms(kern),
            "profiler_ms": kernel_profiler_ms(kern, name, names=names,
                                              min_records=1),
@@ -771,6 +820,7 @@ def serve_phase() -> dict:
             "--temperature", "0", "--device", DEVICE]
     serve.main(argv + ["--gen", "2"])          # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = drive_path("serve", lambda: serve.main(argv + ["--gen",
                                                          str(SERVE["gen"])]),
@@ -828,42 +878,39 @@ def decode_profile(model, params, cache, tok) -> dict:
             "top": [{"name": k, "count": v[0], "ms": v[1]} for k, v in top]}
 
 
-def parity_phase() -> dict:
-    """Phase 6: the kernel path on the card against the plain path on the
-    CPU, full width in float32 cut to 2 layers, greedy tokens in
-    lockstep."""
-    from repro_torch import configs
+def lockstep_parity(label: str, cfg, batch: int, prompt_len: int,
+                    gen: int) -> dict:
+    """The kernel path on the card against the plain path on the CPU: one
+    float32 parameter set on both, prefill then greedy decode in lockstep
+    (both sides take the CPU's token).  Last-position logits within
+    MODEL_TOL at every step; a token that differs is reported with the
+    CPU's top-2 gap and fails unless that gap is within 2 atol (a near
+    tie)."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(configs.get_config(SERVE["arch"]),
-                              n_layers=PARITY["n_layers"], global_every=2,
-                              dtype="float32")
     model = registry.build_model(cfg)
-    windows = [0 if cfg.is_global_layer(i) else cfg.sliding_window
-               for i in range(cfg.n_layers)]
     cpu_params = model.init(0, device="cpu")
     card_params = _to_device(cpu_params)
-    b, s_len, gen = PARITY["batch"], PARITY["prompt_len"], PARITY["gen"]
-    prompts = torch.randint(0, cfg.vocab_size, (b, s_len),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(3))
     runs = {"card": (card_params, prompts.to(DEVICE)),
             "cpu": (cpu_params, prompts)}
     state = {}
     for dev, (params, toks) in runs.items():
         state[dev] = model.prefill(params, {"tokens": toks},
-                                   max_len=s_len + gen)
+                                   max_len=prompt_len + gen)
     steps, flips = [], []
     for step in range(gen + 1):
         logits = {dev: state[dev][0][:, -1].double().cpu() for dev in state}
         err = (logits["card"] - logits["cpu"]).abs()
         bad = err > MODEL_TOL + MODEL_TOL * logits["cpu"].abs()
         if bad.any() or not bool(torch.isfinite(logits["card"]).all()):
-            raise AssertionError(f"parity step {step}: {int(bad.sum())} logits "
-                                 f"beyond rtol = atol = {MODEL_TOL}; max dev "
-                                 f"{float(err.max())}")
+            raise AssertionError(f"{label} step {step}: {int(bad.sum())} "
+                                 f"logits beyond rtol = atol = {MODEL_TOL}; "
+                                 f"max dev {float(err.max())}")
         steps.append(float(err.max()))
         if step == gen:
             break
@@ -874,19 +921,211 @@ def parity_phase() -> dict:
             gap = float(top2[0] - top2[1])
             flips.append({"step": step, "row": int(row), "cpu_gap": gap})
             if gap > 2 * MODEL_TOL:
-                raise AssertionError(f"parity step {step}: greedy tokens "
+                raise AssertionError(f"{label} step {step}: greedy tokens "
                                      f"differ at row {int(row)} with a top-2 "
                                      f"gap of {gap}")
         tok = toks["cpu"]
         for dev, (params, _) in runs.items():
             state[dev] = model.decode_step(params, state[dev][1],
                                            tok.to(state[dev][0].device))
-    row = {"arch": SERVE["arch"], "dtype": "float32",
-           "n_layers": cfg.n_layers, "windows": windows, "batch": b,
-           "prompt_len": s_len, "gen": gen, "rtol": MODEL_TOL,
-           "atol": MODEL_TOL, "max_dev_per_step": steps,
+    row = {"arch": cfg.name, "dtype": "float32", "n_layers": cfg.n_layers,
+           "batch": batch, "prompt_len": prompt_len, "gen": gen,
+           "rtol": MODEL_TOL, "atol": MODEL_TOL, "max_dev_per_step": steps,
            "max_dev": max(steps), "token_flips": flips}
+    return row
+
+
+def parity_phase() -> dict:
+    """Phase 6: gemma3-1b in float32 cut to 2 layers (one local, one
+    global), card against CPU."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(SERVE["arch"]),
+                              n_layers=PARITY["n_layers"], global_every=2,
+                              dtype="float32")
+    row = lockstep_parity("parity", cfg, PARITY["batch"],
+                          PARITY["prompt_len"], PARITY["gen"])
+    row["windows"] = [0 if cfg.is_global_layer(i) else cfg.sliding_window
+                      for i in range(cfg.n_layers)]
     emit({"phase": "parity", **row})
+    return row
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM serve path of xlstm-1.3b: the mLSTM kernel, serving, parity.
+# ---------------------------------------------------------------------------
+
+def mlstm_phase() -> dict:
+    """B7 against its plain version on the card, bfloat16 and float32:
+    the serve shape from the zero state, a ragged shape, and a carry (two
+    halves with the state handed across, against the whole sequence).
+    Inputs follow the JAX kernel test's recipe (k / sqrt(Dh), i ~ N(0, 0.5),
+    f ~ N(2, 0.5)); y and the final C, n and m are checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale
+                + shift)
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = torch.finfo(dtype).bits // 8
+        tol = MLSTM_TOL[dtype]
+        for case, (b, h, s_len, dh, split) in MLSTM_CASES.items():
+            q, k, v = (draw(b, h, s_len, dh).to(dtype) for _ in range(3))
+            k = k / dh ** 0.5
+            ig = draw(b, h, s_len, scale=0.5).to(dtype)
+            fg = draw(b, h, s_len, scale=0.5, shift=2.0).to(dtype)
+            full = (q, k, v, ig, fg)
+            want_y, want_state = mlstm_chunk_plain(*full)
+            if split:
+                first = [x[:, :, :split] for x in full]
+                second = [x[:, :, split:] for x in full]
+                y1, mid = ops.mlstm(*first)
+                y2, got_state = ops.mlstm(*second, mid)
+                got_y = torch.cat([y1, y2], dim=2)
+                timed, plain_args = second, (*second, mid)
+                tokens = s_len - split
+            else:
+                got_y, got_state = ops.mlstm(*full)
+                timed, plain_args = full, full
+                tokens = s_len
+            torch.cuda.synchronize()
+            label = f"mlstm_chunk/{case}/{dtype}"
+            errs = [_max_err(got_y, want_y, tol, label + "/y")]
+            errs += [_max_err(g, w, tol, f"{label}/{key}") for g, w, key in
+                     zip(got_state, want_state, ("C", "n", "m"))]
+            state_in = plain_args[5] if split else None
+            kern = (lambda: ops.mlstm(*timed, state_in))
+            plain = (lambda: mlstm_chunk_plain(*plain_args))
+            work = 4.0 * dh * (dh + CHUNK) * b * h * tokens
+            state_bytes = 4 * b * h * (dh * dh + dh + 1)
+            nbytes = (elt * (4 * b * h * tokens * dh + 2 * b * h * tokens)
+                      + state_bytes * (2 if split else 1))
+            peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+            bound_ms, bound_by = bound(work, nbytes, peak)
+            row = {"name": "mlstm_chunk", "case": case,
+                   "shape": [b, h, s_len, dh], "split": split,
+                   "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": max(errs),
+                   "max_abs_err_y_C_n_m": errs, "rtol": tol, "atol": tol,
+                   "ms": device_ms(kern),
+                   "profiler_ms": kernel_profiler_ms(
+                       kern, "mlstm_chunk", names=("mlstm_chunk",),
+                       min_records=1),
+                   "wrapper_ms": event_ms(kern), "plain_ms": event_ms(plain),
+                   "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "gflop": work / 1e9,
+                   "mbytes": nbytes / 1e6}
+            emit({"phase": "mlstm_vs_plain", **row})
+            rows[case, dtype] = row
+    return rows
+
+
+def _mlstm_layers(arch: str) -> int:
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    n_super, n_m = registry.build_model(configs.get_config(arch))._layout
+    return n_super * n_m
+
+
+def xlstm_serve_phase() -> dict:
+    """Full-width xlstm-1.3b in bfloat16 served through the port's entry
+    point (batch 4, prompt 2048, 32 greedy tokens, after a short warm-up),
+    then one no-cache forward of the same prompts; each is a main path
+    counted from 0 (checked by main).  The forward's last logits must
+    agree with the prefill's within bf16 tolerance."""
+    from repro_torch.launch import serve
+
+    cfg_s = XLSTM_SERVE
+    argv = ["--arch", cfg_s["arch"], "--no-reduced", "--batch",
+            str(cfg_s["batch"]), "--temperature", "0", "--device", DEVICE]
+    serve.main(argv + ["--prompt-len", str(cfg_s["warmup_prompt_len"]),
+                       "--gen", "2"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = drive_path("xlstm_serve", lambda: serve.main(
+        argv + ["--prompt-len", str(cfg_s["prompt_len"]),
+                "--gen", str(cfg_s["gen"])]), keep=True)
+    wall = time.perf_counter() - t0
+    out, info = res["tokens"], res["info"]
+    b, gen = cfg_s["batch"], cfg_s["gen"]
+    want_len = cfg_s["prompt_len"] + gen - 1
+    if out.shape != (b, gen) or info["cache"]["len"] != want_len:
+        raise AssertionError(f"xlstm serve: tokens {tuple(out.shape)}, cache "
+                             f"len {info['cache']['len']}, expected "
+                             f"({b}, {gen}) and {want_len}")
+    if not bool(torch.isfinite(info["logits"]).all()):
+        raise AssertionError("xlstm serve: non-finite logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model, params = res["model"], res["params"]
+    profile = decode_profile(model, params, info["cache"], out[:, -1:])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = drive_path("xlstm_forward", lambda: model.forward(
+        params, res["prompts"], logits_mode="last"), keep=True)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    dev = _max_err(logits, info["prefill_logits"], MLSTM_TOL[torch.bfloat16],
+                   "xlstm no-cache forward vs prefill")
+    row = {"arch": cfg_s["arch"], "batch": b,
+           "prompt_len": cfg_s["prompt_len"], "gen": gen, "dtype": "bfloat16",
+           "prefill_s": info["t_prefill"],
+           "decode_steps": info["decode_steps"], "decode_s": info["t_decode"],
+           "decode_ms_per_step": 1e3 * info["t_decode"] / info["decode_steps"],
+           "decode_tokens_per_s": b * info["decode_steps"] / info["t_decode"],
+           "prefill_tokens_per_s": b * cfg_s["prompt_len"] / info["t_prefill"],
+           "wall_s_with_init": wall, "cache_len": info["cache"]["len"],
+           "peak_mem_gb": peak_gb, "no_cache_forward_s": forward_s,
+           "forward_vs_prefill_max_dev": dev,
+           "block_s": block_times(model, params, res["prompts"]),
+           "decode_step_profile": profile}
+    emit({"phase": "xlstm_serve", **row})
+    return row
+
+
+def block_times(model, params, prompts) -> dict:
+    """Wall seconds of one mLSTM block and one sLSTM block over the whole
+    prompt (host clock around synchronized work, median of 3), to split
+    the prefill between the two; informational."""
+    from repro_torch.models import xlstm
+
+    cfg = model.cfg
+    x = params["embed"][prompts].to(cfg.compute_dtype)
+    blocks = {"mlstm": lambda: xlstm.apply_mlstm_block(
+                  params["m_blocks"][0][0], cfg, x),
+              "slstm": lambda: xlstm.apply_slstm_block(
+                  params["s_blocks"][0], cfg, x)}
+    out = {}
+    for name, fn in blocks.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = float(np.median(times))
+    return out
+
+
+def xlstm_parity_phase() -> dict:
+    """Full-width xlstm-1.3b in float32 cut in depth to one super-block
+    (7 mLSTM + 1 sLSTM), card against CPU."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(XLSTM_SERVE["arch"]),
+                              n_layers=XLSTM_PARITY["n_layers"],
+                              dtype="float32")
+    row = lockstep_parity("xlstm parity", cfg, XLSTM_PARITY["batch"],
+                          XLSTM_PARITY["prompt_len"], XLSTM_PARITY["gen"])
+    emit({"phase": "xlstm_parity", **row})
     return row
 
 
@@ -913,6 +1152,8 @@ def main() -> int:
         return 1
     from repro_torch.kernels import _build
 
+    LOG.parent.mkdir(exist_ok=True)
+    LOG.write_text("")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind, smi = card_info()
@@ -923,12 +1164,27 @@ def main() -> int:
     emit({"phase": "build", "seconds": _build.build()})
     clock["build"] = time.perf_counter()
 
+    # --- slice 4 first: B7, then the xLSTM serve path and its parity -------
+    mlstm = mlstm_phase()
+    clock["mlstm_kernel"] = time.perf_counter()
+    xlstm_serve_phase()
+    m_layers = _mlstm_layers(XLSTM_SERVE["arch"])
+    for path in ("xlstm_serve", "xlstm_forward"):
+        expected = {name: 0 for name in KERNELS}
+        expected["mlstm_chunk"] = m_layers
+        if PATH_LAUNCHES[path] != expected:
+            raise AssertionError(f"{path} launched {PATH_LAUNCHES[path]}, "
+                                 f"expected {expected}")
+    clock["xlstm_serve"] = time.perf_counter()
+    xlstm_parity_phase()
+    clock["xlstm_parity"] = time.perf_counter()
+
     per_shape = {(n, k): kernel_phase(n, k, m) for n, k, m in KERNEL_SHAPES}
     clock["allocation_kernels"] = time.perf_counter()
     attention = attention_phase()
     clock["attention_kernels"] = time.perf_counter()
 
-    # --- the main paths, through the entry points a user calls -----------
+    # --- the gemma3-1b serve path ------------------------------------------
     serve_phase()
     from repro_torch import configs
     n_layers = configs.get_config(SERVE["arch"]).n_layers
@@ -942,7 +1198,9 @@ def main() -> int:
     parity_phase()
     clock["parity"] = time.perf_counter()
 
-    paths = {"serve": PATH_LAUNCHES["serve"],
+    paths = {"xlstm_serve": PATH_LAUNCHES["xlstm_serve"],
+             "xlstm_forward": PATH_LAUNCHES["xlstm_forward"],
+             "serve": PATH_LAUNCHES["serve"],
              "slice1": drive_path("slice1", path_slice1),
              "selfish": drive_path("selfish", path_selfish),
              "run_batch": drive_path("run_batch", batch_pair)}
@@ -966,6 +1224,8 @@ def main() -> int:
         rows[name] = attention[name, MAIN_CASE, torch.bfloat16]
         errors[name] = max(row["max_abs_err"] for key, row in attention.items()
                            if key[0] == name)
+    rows["mlstm_chunk"] = mlstm["serve", torch.bfloat16]
+    errors["mlstm_chunk"] = max(row["max_abs_err"] for row in mlstm.values())
     print(smi, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda",

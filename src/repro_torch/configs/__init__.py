@@ -1,6 +1,6 @@
 """Architecture registry: the JAX package's ten names, with the exact public
 config of each ported one and its reduced smoke variant for CPU tests.
-Only gemma3-1b is ported so far; the other names raise."""
+gemma3-1b and xlstm-1.3b are ported; the other names raise."""
 from __future__ import annotations
 
 import importlib
@@ -17,7 +17,7 @@ _MODULES = {
     "llama4-maverick-400b-a17b": None,
     "deepseek-v2-236b": None,
     "hymba-1.5b": None,
-    "xlstm-1.3b": None,
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCH_NAMES = list(_MODULES)

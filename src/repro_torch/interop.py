@@ -108,3 +108,38 @@ def causal_lm_params_from_arrays(tree: dict, cfg: ModelConfig, *,
               if key in tree}
     params["blocks"] = [layer(blocks, i) for i in range(n_layers)]
     return params
+
+
+def xlstm_params_from_arrays(tree: dict, cfg: ModelConfig, *,
+                             device) -> dict:
+    """The JAX ``XLSTMLM.init`` tree, as numpy arrays -> this package's
+    parameters, values unchanged (float32).  The JAX tree stacks
+    ``"m_blocks"`` on (n_super, n_mlstm) and ``"s_blocks"`` on (n_super,);
+    the port keeps a list of n_super lists of mLSTM block dicts and a list
+    of n_super sLSTM block dicts."""
+    extra = set(tree) - {"embed", "ln_f", "unembed", "m_blocks", "s_blocks"}
+    if extra:
+        raise ValueError(f"unknown parameter groups {sorted(extra)}")
+
+    def leaf(x):
+        return _f32(x, device)
+
+    def block(sub, index):
+        return {key: block(x, index) if isinstance(x, dict) else leaf(x[index])
+                for key, x in sub.items()}
+
+    n_super, n_m = np.asarray(tree["m_blocks"]["ln"]).shape[:2]
+    want_m = (cfg.n_layers // cfg.slstm_every if cfg.slstm_every > 0 else 1,
+              cfg.slstm_every - 1 if cfg.slstm_every > 0 else cfg.n_layers)
+    if (n_super, n_m) != want_m or ("s_blocks" in tree) != (cfg.slstm_every > 0):
+        raise ValueError(f"tree has {n_super} x {n_m} mLSTM blocks and "
+                         f"{'an' if 's_blocks' in tree else 'no'} sLSTM stack; "
+                         f"config {cfg.name!r} wants {want_m[0]} x {want_m[1]}")
+    params = {key: leaf(tree[key]) for key in ("embed", "ln_f", "unembed")
+              if key in tree}
+    params["m_blocks"] = [[block(tree["m_blocks"], (si, li))
+                           for li in range(n_m)] for si in range(n_super)]
+    if "s_blocks" in tree:
+        params["s_blocks"] = [block(tree["s_blocks"], si)
+                              for si in range(n_super)]
+    return params

@@ -1,13 +1,13 @@
-"""Dispatch wrappers for the allocation and attention kernels.
+"""Dispatch wrappers for the allocation, attention and mLSTM kernels.
 
 The device of the tensors decides the path: a CUDA tensor launches the
 hand-written kernel (and raises if it cannot), a CPU tensor takes the plain
 PyTorch version beside the kernel.  There is no fallback from one to the
 other and no switch to force either.  Every wrapper checks device, dtype
-(float32 for the allocation kernels, float32 or bfloat16 for attention),
-shape and layout first, and counts its kernel launches in ``LAUNCHES`` (a
-plain integer per kernel, bumped only where the kernel is launched), so a
-run can show which kernels its main path went through.
+(float32 for the allocation kernels, float32 or bfloat16 for attention
+and the mLSTM), shape and layout first, and counts its kernel launches in
+``LAUNCHES`` (a plain integer per kernel, bumped only where the kernel is
+launched), so a run can show which kernels its main path went through.
 """
 from __future__ import annotations
 
@@ -23,13 +23,16 @@ from repro_torch.kernels.market_clear import (market_clear_cuda,
                                               market_clear_plain,
                                               mbdf_demand_cuda,
                                               mbdf_demand_plain)
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda, mlstm_chunk_plain
 
 KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
-                "flash_attention", "decode_attention")
+                "flash_attention", "decode_attention", "mlstm_chunk")
 MAX_K = 1024  # clients per service the kernels hold in registers (32 x 32)
 HEAD_DIMS = (32, 64, 128, 256)     # head dims the attention kernels compile
 DECODE_GROUPS = (1, 2, 4, 8)       # query heads per KV head of decode
 ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
+MLSTM_HEAD_DIM_STEP = 64    # mLSTM head dims: multiples of the kernel's
+MLSTM_MAX_HEAD_DIM = 1024   # head-dim tile, up to what its C slice fits
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
@@ -219,3 +222,58 @@ def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES["decode_attention"] += 1
         return out
     return decode_attention_plain(q, k, v, int(valid_len))
+
+
+def _check_mlstm(tensors: dict) -> bool:
+    """Validate the mLSTM inputs' dtype, device and layout (the head dim of
+    q, k and v contiguous); True for the CUDA path, False for CPU."""
+    first = tensors["q"]
+    if first.dtype not in ATTENTION_DTYPES:
+        raise TypeError(f"mlstm: need float32 or bfloat16, got {first.dtype}")
+    for key, x in tensors.items():
+        if x.dtype != first.dtype:
+            raise TypeError(f"mlstm: {key} is {x.dtype}, not {first.dtype}")
+        if x.device != first.device:
+            raise ValueError(f"mlstm: {key} is on {x.device}, not "
+                             f"{first.device}")
+        if x.ndim == 4 and x.stride(-1) != 1:
+            raise ValueError(f"mlstm: {key}'s head dim must be contiguous")
+    if first.device.type == "cuda":
+        return True
+    if first.device.type == "cpu":
+        return False
+    raise ValueError(f"mlstm: unsupported device {first.device}")
+
+
+def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          i_gate: torch.Tensor, f_gate: torch.Tensor, state=None):
+    """Chunkwise mLSTM over a whole sequence: q, k, v (B, H, S, Dh) with any
+    (batch, head, position) strides and a contiguous head dim, gates
+    (B, H, S) with any strides, all of one dtype; ``state`` None or
+    float32 contiguous (C (B, H, Dh, Dh), n (B, H, Dh), m (B, H)) ->
+    (y (B, H, S, Dh) in q's dtype, (C, n, m) float32)."""
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"mlstm: need q, k, v of one (B, H, S, Dh) shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, dh = q.shape
+    if i_gate.shape != (b, h, s) or f_gate.shape != (b, h, s) or s < 1:
+        raise ValueError(f"mlstm: gates must be ({b}, {h}, {s}) with S >= 1, "
+                         f"got {tuple(i_gate.shape)}, {tuple(f_gate.shape)}")
+    if dh % MLSTM_HEAD_DIM_STEP or not 0 < dh <= MLSTM_MAX_HEAD_DIM:
+        raise ValueError(f"mlstm: head dim {dh} is not a multiple of "
+                         f"{MLSTM_HEAD_DIM_STEP} up to {MLSTM_MAX_HEAD_DIM}")
+    if state is not None:
+        shapes = ((b, h, dh, dh), (b, h, dh), (b, h))
+        if len(state) != 3 or any(
+                x.shape != shape or x.dtype != torch.float32
+                or x.device != q.device or not x.is_contiguous()
+                for x, shape in zip(state, shapes)):
+            raise ValueError(f"mlstm: state must be contiguous float32 "
+                             f"(C, n, m) of shapes {shapes} on {q.device}")
+    if _check_mlstm({"q": q, "k": k, "v": v, "i_gate": i_gate,
+                     "f_gate": f_gate}):
+        out = mlstm_chunk_cuda(q, k, v, i_gate, f_gate, state)
+        LAUNCHES["mlstm_chunk"] += 1
+        return out
+    return mlstm_chunk_plain(q, k, v, i_gate, f_gate, state)

@@ -1,21 +1,24 @@
-"""Batched serving: prefill + decode loop with a KV cache, the
-counterpart of ``repro.launch.serve``.
+"""Batched serving: prefill + decode loop with a cache, the counterpart of
+``repro.launch.serve``.
 
 Serves a (reduced by default; ``--no-reduced`` selects the full public
-config) architecture on the card, or on the CPU with ``--device cpu``.
+config) architecture on the card, or on the CPU with ``--device cpu``:
+gemma3-1b (a KV cache) or xlstm-1.3b (a recurrent state cache), through the
+same ``generate``.
 Prefill time is read after the device has finished the logits, and every
 generated token -- including the first, sampled from the prefill logits --
 goes through the same ``--temperature`` path, so the loop emits exactly
 ``--gen`` sampled tokens with ``gen - 1`` decode launches.
 
 Parameters are drawn in float32 and cast once to the compute dtype before
-serving (``CausalLM.cast_params``): the same values the JAX model casts at
-every use, without re-reading the float32 weights and the 262144 x 1152
-embedding table at every decode step.
+serving (the model's ``cast_params``; the float32 tree is then dropped):
+the same values the JAX model casts at every use, without re-reading the
+float32 weights at every decode step.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --batch 4 --prompt-len 64 --gen 32 [--no-reduced] [--device cpu]
+  (--arch xlstm-1.3b serves the xLSTM)
 """
 from __future__ import annotations
 
@@ -76,7 +79,8 @@ def generate(model, params, batch: dict, *, max_len: int, gen: int,
     ``t_prefill`` waits for the prefill logits before reading the clock,
     and ``decode_steps`` counts the ``gen - 1`` decode launches that follow
     the first token (sampled from the prefill logits through the same
-    temperature path as the rest).
+    temperature path as the rest); ``prefill_logits`` and ``logits`` are
+    the first and the last step's.
     """
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
@@ -85,6 +89,7 @@ def generate(model, params, batch: dict, *, max_len: int, gen: int,
     _sync(logits)
     t_prefill = time.perf_counter() - t0
 
+    prefill_logits = logits
     tok = sample_token(generator, logits, temperature)
     generated = [tok]
     t0 = time.perf_counter()
@@ -96,13 +101,14 @@ def generate(model, params, batch: dict, *, max_len: int, gen: int,
     t_decode = time.perf_counter() - t0
     out = torch.cat(generated, dim=1)
     info = {"t_prefill": t_prefill, "t_decode": t_decode,
-            "decode_steps": gen - 1, "cache": cache, "logits": logits}
+            "decode_steps": gen - 1, "cache": cache, "logits": logits,
+            "prefill_logits": prefill_logits}
     return out, info
 
 
 def main(argv: list[str] | None = None) -> dict:
     """Serve one batch of random prompts; prints a summary and returns
-    ``{"tokens", "info", "config", "model", "params"}``."""
+    ``{"tokens", "info", "config", "model", "params", "prompts"}``."""
     args = build_parser().parse_args(argv)
     cfg = resolve_config(args.arch, args.reduced)
     model = registry.build_model(cfg)
@@ -124,7 +130,7 @@ def main(argv: list[str] | None = None) -> dict:
           f"{out[0][:16].tolist()} ...")
     print(f"[cache]  len={int(info['cache']['len'])}")
     return {"tokens": out, "info": info, "config": cfg, "model": model,
-            "params": params}
+            "params": params, "prompts": prompts}
 
 
 if __name__ == "__main__":

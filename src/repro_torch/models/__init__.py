@@ -1,1 +1,2 @@
-"""The model zoo: configurations, layers and the decoder-only transformer."""
+"""The model zoo: configurations, layers, the decoder-only transformer and
+the xLSTM."""

@@ -3,8 +3,8 @@
 
 One dataclass parameterizes the dense / MoE / MLA / SSM / hybrid / enc-dec
 families, field for field as in the JAX package, so a configuration reads
-the same in both.  Only the dense family is ported so far
-(``registry.build_model`` raises for the others).
+the same in both.  The dense and SSM (xLSTM) families are ported
+(``check_ported`` raises for the others and for unported features).
 """
 from __future__ import annotations
 
@@ -114,6 +114,31 @@ class ModelConfig:
 
         params = registry.build_model(self).init(0, device="meta")
         return sum(math.prod(x.shape) for x in _leaves(params))
+
+
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for the parts of the config this port does not run yet."""
+    missing = []
+    if cfg.family not in PORTED_FAMILIES:
+        missing.append(f"family {cfg.family!r}")
+    if cfg.n_experts:
+        missing.append("MoE layers")
+    if cfg.kv_cache_dtype != "compute":
+        missing.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
+    if cfg.mrope_sections:
+        missing.append("M-RoPE")
+    if cfg.logit_softcap > 0:
+        missing.append("logit_softcap")
+    if cfg.parallel_block:
+        missing.append("parallel_block")
+    if cfg.frontend != "none":
+        missing.append(f"frontend {cfg.frontend!r}")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not yet "
+                                  f"ported")
 
 
 def _leaves(tree):

@@ -31,34 +31,12 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, check_ported
 
 Params = dict[str, Any]
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed",
              "unembed", "bq", "bk", "bv")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the config this port does not run yet."""
-    missing = []
-    if cfg.family != "dense":
-        missing.append(f"family {cfg.family!r}")
-    if cfg.n_experts:
-        missing.append("MoE layers")
-    if cfg.kv_cache_dtype != "compute":
-        missing.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
-    if cfg.mrope_sections:
-        missing.append("M-RoPE")
-    if cfg.logit_softcap > 0:
-        missing.append("logit_softcap")
-    if cfg.parallel_block:
-        missing.append("parallel_block")
-    if cfg.frontend != "none":
-        missing.append(f"frontend {cfg.frontend!r}")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not yet "
-                                  f"ported")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +136,9 @@ class CausalLM:
 
     def __post_init__(self):
         check_ported(self.cfg)
+        if self.cfg.family == "ssm":
+            raise ValueError(f"{self.cfg.name}: the ssm family is XLSTMLM's "
+                             f"(models/xlstm.py), not CausalLM's")
 
     # ---------------- init ----------------
     def init(self, seed: int | torch.Generator, *,

@@ -280,7 +280,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     for module in ("core/fairness.py", "core/auction.py", "kernels/ops.py",
                    "kernels/market_clear.py", "scenarios/base.py",
                    "scenarios/arrival.py", "scenarios/channel.py",
-                   "scenarios/churn.py", "fl/simulator.py", "interop.py"):
+                   "scenarios/churn.py", "fl/simulator.py", "interop.py",
+                   "kernels/mlstm_chunk.py", "models/ssm.py",
+                   "models/xlstm.py", "configs/xlstm_1_3b.py"):
         assert f"src/repro_torch/{module}" in names, module
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

@@ -500,3 +500,182 @@ def test_cuda_decode_attention_matches_plain(dtype, b, hq, hkv, s, d, valid,
         ops.attention_decode(q, k[:, lo:valid], v[:, lo:valid], valid - lo),
         decode_attention_plain(q, k[:, lo:valid], v[:, lo:valid], valid - lo),
         **tol)
+
+
+# ---------------------------------------------------------------------------
+# The mLSTM kernel (B7 mlstm_chunk): the plain version against the Pallas
+# kernel in interpret mode and ``ref.mlstm_chunk_ref`` (the parallel form)
+# on ``tests/test_kernels.py``'s shapes with its inputs' recipe (k / sqrt(Dh),
+# i ~ N(0, 0.5), f ~ N(2, 0.5)) and tolerances (float32 rtol = atol = 5e-4,
+# bfloat16 5e-2).  The state the TPU kernel drops, a given initial state and
+# ragged lengths are held against ``ssm.mlstm_chunkwise``.
+# ---------------------------------------------------------------------------
+
+from repro.kernels.mlstm_chunk import mlstm_chunk as j_mlstm_chunk  # noqa: E402
+from repro.models import ssm as j_ssm  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk_plain  # noqa: E402
+
+MLSTM_TOL = {"float32": dict(rtol=5e-4, atol=5e-4),
+             "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+def _mlstm_pairs(seed, dtype, b, h, s, dh, state=False):
+    """(jax, torch) pairs of q, k, v, i, f in ``dtype`` after the JAX test's
+    recipe, and of a float32 state (C, n, m) when ``state``."""
+    rng = np.random.default_rng(seed)
+    x = [rng.standard_normal((b, h, s, dh)).astype(np.float32)
+         for _ in range(3)]
+    x[1] = x[1] / np.float32(np.sqrt(dh))
+    x.append((rng.standard_normal((b, h, s)) * 0.5).astype(np.float32))
+    x.append((rng.standard_normal((b, h, s)) * 0.5 + 2.0).astype(np.float32))
+    pairs = [(jnp.asarray(a, getattr(jnp, dtype)),
+              torch.as_tensor(a).to(getattr(torch, dtype))) for a in x]
+    if state:
+        st = [(rng.standard_normal((b, h, dh, dh)) * 0.3).astype(np.float32),
+              (rng.standard_normal((b, h, dh)) * 0.3).astype(np.float32),
+              (rng.standard_normal((b, h)) * 0.5).astype(np.float32)]
+        pairs.append((tuple(jnp.asarray(a) for a in st),
+                      tuple(torch.as_tensor(a) for a in st)))
+    return pairs
+
+
+def _mlstm_close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **MLSTM_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,s,dh,chunk", [
+    (2, 2, 256, 64, 128),
+    (1, 4, 512, 128, 128),
+    (2, 1, 256, 64, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_chunk_plain_matches_pallas(b, h, s, dh, chunk, dtype):
+    pairs = _mlstm_pairs(21, dtype, b, h, s, dh)
+    jx, tx = [p[0] for p in pairs], [p[1] for p in pairs]
+    y, (c, n, m) = ops.mlstm(*tx)
+    assert y.dtype == tx[0].dtype and y.shape == (b, h, s, dh)
+    assert c.shape == (b, h, dh, dh) and c.dtype == torch.float32
+    _mlstm_close(y, j_mlstm_chunk(*jx, chunk=chunk, interpret=True), dtype)
+    _mlstm_close(y, j_ref.mlstm_chunk_ref(*jx), dtype)
+    _, (jc, jn, jm) = j_ssm.mlstm_chunkwise(*jx, chunk=chunk)
+    for got, want in ((c, jc), (n, jn), (m, jm)):
+        _mlstm_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("s", [1, 37, 100, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_chunk_plain_ragged_matches_ref(s, dtype):
+    """Lengths no chunk of 256 divides: one chunk of S, against the parallel
+    form and JAX's chunkwise form at chunk S."""
+    pairs = _mlstm_pairs(22, dtype, 2, 2, s, 64)
+    jx, tx = [p[0] for p in pairs], [p[1] for p in pairs]
+    y, (c, n, m) = ops.mlstm(*tx)
+    _mlstm_close(y, j_ref.mlstm_chunk_ref(*jx), dtype)
+    jy, (jc, jn, jm) = j_ssm.mlstm_chunkwise(*jx, chunk=s)
+    _mlstm_close(y, jy, dtype)
+    for got, want in ((c, jc), (n, jn), (m, jm)):
+        _mlstm_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("s", [512, 300])
+def test_mlstm_chunk_plain_carries_a_given_state(s):
+    """From a non-zero state: y and the final (C, n, m) equal JAX's
+    chunkwise form's; and two halves with the state handed across equal the
+    whole sequence."""
+    pairs = _mlstm_pairs(23, "float32", 2, 2, s, 64, state=True)
+    jx, tx = [p[0] for p in pairs], [p[1] for p in pairs]
+    y, state = ops.mlstm(*tx)
+    jy, jstate = j_ssm.mlstm_chunkwise(*jx, chunk=256 if s % 256 == 0 else s)
+    _mlstm_close(y, jy, "float32")
+    for got, want in zip(state, jstate):
+        _mlstm_close(got, want, "float32")
+    half = s // 2
+    first = [x[:, :, :half] for x in tx[:5]]
+    second = [x[:, :, half:] for x in tx[:5]]
+    y1, mid = ops.mlstm(*first, tx[5])
+    y2, end = ops.mlstm(*second, mid)
+    _mlstm_close(torch.cat([y1, y2], dim=2), jy, "float32")
+    for got, want in zip(end, jstate):
+        _mlstm_close(got, want, "float32")
+
+
+def test_mlstm_takes_strided_views_and_launches_nothing_on_cpu():
+    """The model hands in transposed views of its (B, S, H, 3Dh) projection
+    and (B, S, 2H) gates; the result equals the one from contiguous
+    copies, and the CPU path launches no kernel."""
+    ops.reset_launches()
+    rng = np.random.default_rng(24)
+    qkv = torch.as_tensor(rng.standard_normal((2, 40, 4, 192)).astype(np.float32))
+    gates = torch.as_tensor(rng.standard_normal((2, 40, 8)).astype(np.float32))
+    q, k, v = (x.transpose(1, 2) for x in torch.split(qkv, 64, dim=-1))
+    i_gate, f_gate = gates[..., :4].transpose(1, 2), gates[..., 4:].transpose(1, 2)
+    y, state = ops.mlstm(q, k, v, i_gate, f_gate)
+    y2, state2 = mlstm_chunk_plain(*(x.contiguous() for x in
+                                     (q, k, v, i_gate, f_gate)))
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(state, state2))
+    assert ops.LAUNCHES == {name: 0 for name in ops.KERNEL_NAMES}
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("float64", TypeError),
+    ("mixed_dtype", TypeError),
+    ("head_dim", ValueError),
+    ("too_wide", ValueError),
+    ("gate_shape", ValueError),
+    ("strided_head_dim", ValueError),
+    ("state_dtype", ValueError),
+    ("state_shape", ValueError),
+])
+def test_mlstm_rejects_what_the_kernel_does_not_take(bad, error):
+    pairs = _mlstm_pairs(25, "float32", 1, 2, 16, 64, state=True)
+    q, k, v, ig, fg, state = [p[1] for p in pairs]
+    if bad == "float64":
+        q, k, v, ig, fg = (x.double() for x in (q, k, v, ig, fg))
+    elif bad == "mixed_dtype":
+        fg = fg.to(torch.bfloat16)
+    elif bad == "head_dim":
+        q, k, v = q[..., :32], k[..., :32], v[..., :32]
+        state = None
+    elif bad == "too_wide":
+        q = k = v = torch.zeros((1, 2, 16, 1056))
+        state = None
+    elif bad == "gate_shape":
+        ig = ig[:, :, :15]
+    elif bad == "strided_head_dim":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "state_dtype":
+        state = (state[0].double(), *state[1:])
+    else:
+        state = (state[0], state[1][..., :32], state[2])
+    with pytest.raises(error):
+        ops.mlstm(q, k, v, ig, fg, state)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dh,with_state", [
+    (4, 4, 2048, 1024, False), (2, 2, 1100, 128, True), (1, 4, 77, 64, True),
+    (2, 1, 1, 64, False)])
+def test_cuda_mlstm_chunk_matches_plain(dtype, b, h, s, dh, with_state):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale + shift
+
+    q, k, v = (draw(b, h, s, dh).to(dtype) for _ in range(3))
+    k = k / dh ** 0.5
+    ig, fg = draw(b, h, s, scale=0.5).to(dtype), draw(b, h, s, scale=0.5,
+                                                      shift=2.0).to(dtype)
+    state = None
+    if with_state:
+        state = (draw(b, h, dh, dh, scale=0.3), draw(b, h, dh, scale=0.3),
+                 draw(b, h, scale=0.5))
+    tol = MLSTM_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    y, got = ops.mlstm(q, k, v, ig, fg, state)
+    want_y, want = mlstm_chunk_plain(q, k, v, ig, fg, state)
+    torch.testing.assert_close(y, want_y, **tol)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **tol)

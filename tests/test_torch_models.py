@@ -92,7 +92,7 @@ def test_reduced_overrides_and_moe_layers_match_jax():
 def test_other_archs_are_not_yet_ported():
     assert configs.ARCH_NAMES == j_configs.ARCH_NAMES
     for name in configs.ARCH_NAMES:
-        if name == ARCH:
+        if name in (ARCH, "xlstm-1.3b"):     # ported
             continue
         with pytest.raises(NotImplementedError, match="not yet ported"):
             configs.get_config(name)
