@@ -53,21 +53,27 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    shape (B = 2, Hq = 8, Hkv = 2, S = 1100, D = 128); B6 at the decode
    shape (cache 2080, valid_len 2079) global, on the local window's slice
    of the cache (the last 1024 positions) and at a ragged valid_len
-   (1337).  Tolerances are the JAX kernel tests' (rtol = atol = 2e-5 in
-   float32, 2e-2 in bfloat16).  Per case: kernel, profiler, wrapper and
-   plain times as in phase 3, the time of one
+   (1337); and B5 in bfloat16 once more at the local shape on transposed
+   views of (B, S, H, D) tensors, the layout the model hands in.
+   Tolerances are the JAX kernel tests' (rtol = atol = 2e-5 in float32,
+   2e-2 in bfloat16).  Per case: kernel, profiler (the kernel's own name:
+   flash_attention_wgmma_kernel for bf16 B5, flash_attention_kernel for
+   float32, decode_attention_kernel, one launch a call), wrapper and plain
+   times as in phase 3, the time of one
    F.scaled_dot_product_attention(enable_gqa=True) call on the same inputs
-   (library_ms; the port never calls it), and the bound: the larger of the
+   (library_ms; the port never calls it), the bound: the larger of the
    operations (4 D per live (query, key) pair, counted from the mask) over
    989 TFLOP/s for bfloat16 or 67 TFLOP/s for float32, and the bytes of
-   q, the live k and v, and the output over 3.35 TB/s;
+   q, the live k and v, and the output over 3.35 TB/s; and the achieved
+   rate of what bounds it (TFLOP/s or GB/s) with bound_ms / ms;
 5. the serve path (slice 3's main path), through
    repro_torch.launch.serve.main: full-width gemma3-1b in bfloat16 from a
    seeded init, batch 4, prompt 2048, 32 greedy tokens, after one short
    warm-up serve.  Counted from 0 just before it: exactly 26
    flash_attention and 26 x 31 = 806 decode_attention launches and no
    other kernel (no mlstm_chunk); finite logits and a cache filled to 2079; then one more
-   decode step under the profiler (its device activities and busy time);
+   decode step under the profiler (its device activities and busy time)
+   and one more prefill under it (device busy time and B5's share);
 6. the kernel path against the plain path end to end: full-width
    gemma3-1b in float32 cut to 2 layers (one local, one global), one
    parameter set on the card and on the CPU, batch 2, prompt 2048, 8
@@ -170,6 +176,9 @@ FLASH_CASES = {"local": (4, 4, 1, 2048, 256, 1024),
 DECODE_CASES = {"global": (4, 4, 1, 2080, 256, 2079, 0),
                 "local": (4, 4, 1, 2080, 256, 2079, 1055),
                 "ragged": (4, 4, 1, 2080, 256, 1337, 0)}
+# B5 on transposed views of (B, S, H, D) tensors, the layout the model
+# hands in (bf16 only; the float32 parity phase covers it end to end).
+SERVE_LAYOUT_CASES = {"local_serve_layout": (4, 4, 1, 2048, 256, 1024)}
 MAIN_CASE = "local"       # the kernels line: 22 of gemma3-1b's 26 layers
 SERVE = dict(arch="gemma3-1b", batch=4, prompt_len=2048, gen=32)
 PARITY = dict(n_layers=2, batch=2, prompt_len=2048, gen=8)
@@ -235,11 +244,10 @@ def kernel_profiler_ms(fn, kernel: str, reps: int = 21,
                        names: tuple[str, ...] = (),
                        min_records: int | None = None) -> float:
     """Mean device time per call of the CUDA kernels whose names contain
-    ``names`` (default ``{kernel}_kernel``; decode_attention launches a
-    split and a combine kernel) over ``reps`` calls, from the profiler's
-    CUDA activity records.  At least ``min_records`` (default reps // 2)
-    records of each must survive: the activity buffer drops some, and of
-    millisecond kernels most."""
+    ``names`` (default ``{kernel}_kernel``) over ``reps`` calls, from the
+    profiler's CUDA activity records.  At least ``min_records`` (default
+    reps // 2) records of each must survive: the activity buffer drops
+    some, and of millisecond kernels most."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CUDA]
@@ -747,20 +755,28 @@ def _max_err(got, want, tol: float, label: str) -> float:
 
 def attention_row(name: str, case: str, dtype, kern, plain, library,
                   work_ops: float, nbytes: float, names=()) -> dict:
+    """One attention case: the deviation from the plain version, the times,
+    the bound, and the achieved rate of the resource that bounds the case
+    (TFLOP/s of live work, or GB/s of the bytes the bound counts) with
+    bound_ms / ms, the kernel's share of its bound."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     tol = ATTENTION_TOL[dtype]
     max_dev = _max_err(got, want, tol, f"{name}/{case}/{dtype}")
     peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
     bound_ms, bound_by = bound(work_ops, nbytes, peak)
+    ms = device_ms(kern)
+    rate = ({"tflop_per_s": work_ops / ms / 1e9} if bound_by == "operations"
+            else {"gb_per_s": nbytes / ms / 1e6})
     row = {"name": name, "case": case, "dtype": str(dtype).split(".")[-1],
            "max_abs_err": max_dev, "rtol": tol, "atol": tol,
-           "ms": device_ms(kern),
+           "ms": ms,
            "profiler_ms": kernel_profiler_ms(kern, name, names=names,
                                              min_records=1),
            "wrapper_ms": event_ms(kern), "plain_ms": event_ms(plain),
            "library_ms": device_ms(library),
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms": bound_ms, "bound_by": bound_by, **rate,
+           "share_of_bound": bound_ms / ms,
            "gflop": work_ops / 1e9, "mbytes": nbytes / 1e6}
     emit({"phase": "attention_vs_plain", **row})
     return row
@@ -776,11 +792,21 @@ def attention_phase() -> dict:
 
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     rows = {}
+    flash_kernel = {torch.bfloat16: "flash_attention_wgmma_kernel",
+                    torch.float32: "flash_attention_kernel"}
     for dtype in (torch.bfloat16, torch.float32):
         elt = torch.finfo(dtype).bits // 8
-        for case, (b, hq, hkv, s_len, d, window) in FLASH_CASES.items():
-            q, k, v = _heads(gen, dtype, (b, hq, s_len, d),
-                             (b, hkv, s_len, d), (b, hkv, s_len, d))
+        cases = dict(FLASH_CASES)
+        if dtype == torch.bfloat16:
+            cases.update(SERVE_LAYOUT_CASES)
+        for case, (b, hq, hkv, s_len, d, window) in cases.items():
+            if case in SERVE_LAYOUT_CASES:   # (B, S, H, D) -> (B, H, S, D)
+                q, k, v = (x.transpose(1, 2) for x in _heads(
+                    gen, dtype, (b, s_len, hq, d), (b, s_len, hkv, d),
+                    (b, s_len, hkv, d)))
+            else:
+                q, k, v = _heads(gen, dtype, (b, hq, s_len, d),
+                                 (b, hkv, s_len, d), (b, hkv, s_len, d))
             mask = _sdpa_mask(s_len, window) if window else None
             rows["flash_attention", case, dtype] = attention_row(
                 "flash_attention", case, dtype,
@@ -792,7 +818,7 @@ def attention_phase() -> dict:
                     enable_gqa=True),
                 4.0 * d * b * hq * _live_pairs(s_len, window),
                 elt * (2 * b * hq * s_len * d + 2 * b * hkv * s_len * d),
-                names=("flash_attention",))  # and flash_attention_mma
+                names=(flash_kernel[dtype],))
         for case, (b, hq, hkv, cache, d, valid, lo) in DECODE_CASES.items():
             q, k, v = _heads(gen, dtype, (b, hq, d), (b, cache, hkv, d),
                              (b, cache, hkv, d))
@@ -806,7 +832,7 @@ def attention_phase() -> dict:
                     q[:, :, None], kt, vt, enable_gqa=True),
                 4.0 * d * b * hq * n,
                 elt * (2 * b * hq * d + 2 * b * hkv * n * d),
-                names=("decode_split_kernel", "decode_combine_kernel"))
+                names=("decode_attention_kernel",))
     return rows
 
 
@@ -837,6 +863,9 @@ def serve_phase() -> dict:
         raise AssertionError("serve: non-finite logits")
     profile = decode_profile(res["model"], res["params"], info["cache"],
                              out[:, -1:])
+    prefill = prefill_profile(res["model"], res["params"], res["prompts"],
+                              SERVE["prompt_len"] + gen,
+                              "flash_attention_wgmma_kernel")
     row = {"arch": SERVE["arch"], "batch": b, "prompt_len": SERVE["prompt_len"],
            "gen": gen, "dtype": "bfloat16", "prefill_s": info["t_prefill"],
            "decode_steps": info["decode_steps"], "decode_s": info["t_decode"],
@@ -845,7 +874,7 @@ def serve_phase() -> dict:
            "prefill_tokens_per_s": b * SERVE["prompt_len"] / info["t_prefill"],
            "wall_s_with_init": wall, "cache_len": info["cache"]["len"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "decode_step_profile": profile}
+           "decode_step_profile": profile, "prefill_profile": prefill}
     emit({"phase": "serve", **row})
     return row
 
@@ -876,6 +905,35 @@ def decode_profile(model, params, cache, tok) -> dict:
     return {"device_activities": len(device), "device_busy_ms": busy_ms,
             "profiled_wall_ms": wall_ms,
             "top": [{"name": k, "count": v[0], "ms": v[1]} for k, v in top]}
+
+
+def prefill_profile(model, params, prompts, max_len: int,
+                    kernel: str) -> dict:
+    """One more prefill of the served prompts under the profiler (outside
+    the counted path): its device activities, their summed device time,
+    the device time of the kernels whose names contain ``kernel``, and the
+    prefill's wall time (inflated by the profiler; the serve row's
+    prefill_s is the unprofiled one).  It says how much of the prefill
+    the device is busy, and how much of that the attention kernel takes.
+    Informational: the profiler may drop records."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, {"tokens": prompts},
+                                  max_len=max_len)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in device if kernel in e.name]
+    return {"device_activities": len(device),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in device) / 1e3,
+            "kernel": kernel, "kernel_launches": len(mine),
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in mine) / 1e3,
+            "profiled_wall_ms": wall_ms}
 
 
 def lockstep_parity(label: str, cfg, batch: int, prompt_len: int,

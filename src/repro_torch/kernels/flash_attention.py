@@ -7,7 +7,10 @@ Hq / Hkv query heads share a KV head.  Row i attends to the keys j <= i
 output in q's dtype.  The CUDA kernel is ``csrc/flash_attention.cu``: it
 reads every tensor through its (batch, head, position) strides, so a
 transposed view of a (B, S, H, D) tensor goes in without a copy, and it
-writes its output in q's own layout (``torch.empty_like``).
+writes its output in q's own layout (``torch.empty_like``).  In bfloat16
+it loads k and v by TMA through tensor maps it encodes per call over those
+views (rows 16-byte aligned, no broadcast dims: ``ops.attention`` checks)
+and multiplies with ``wgmma``; float32 runs on the FMA units.
 ``flash_attention_plain`` computes the same function with float32
 arithmetic in PyTorch ops (q, k and v upcast, one materialized softmax,
 the result cast to q's dtype), as the TPU kernel does in its blocks.

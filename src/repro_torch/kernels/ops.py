@@ -160,13 +160,26 @@ def _check_heads(name: str, tensors: dict, d: int) -> bool:
 
 
 def _check_rows_aligned(name: str, tensors: dict) -> None:
-    """The tensor-core path reads bf16 rows 16 bytes at a time: every
-    pointer and (batch, head, position) stride must keep rows 16-byte
-    aligned."""
+    """The attention kernels read rows 16 bytes at a time (B5's bf16 path
+    by TMA, B6 by cp.async): every pointer and (batch, head, position)
+    stride must keep rows 16-byte aligned."""
     for key, x in tensors.items():
-        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1]):
+        if x.data_ptr() % 16 or any(
+                (st * x.element_size()) % 16 for st in x.stride()[:-1]):
             raise ValueError(f"{name}: {key}'s rows must be 16-byte aligned "
                              f"(strides {x.stride()})")
+
+
+def _check_tma_strides(name: str, tensors: dict) -> None:
+    """B5's bf16 path loads k and v through TMA tensor maps, which step
+    every (batch, head, position) dim of extent > 1 by a positive stride:
+    no broadcast (stride 0) views."""
+    for key, x in tensors.items():
+        if any(st <= 0 < n - 1 for st, n in zip(x.stride()[:-1],
+                                                 x.shape[:-1])):
+            raise ValueError(f"{name}: {key} has a stride-0 dim "
+                             f"(strides {x.stride()}, shape "
+                             f"{tuple(x.shape)}); TMA cannot broadcast")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -190,6 +203,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _check_heads("attention", {"q": q, "k": k, "v": v}, d):
         if q.dtype == torch.bfloat16:
             _check_rows_aligned("attention", {"q": q, "k": k, "v": v})
+            _check_tma_strides("attention", {"k": k, "v": v})
         out = flash_attention_cuda(q, k, v, causal=causal, window=window)
         LAUNCHES["flash_attention"] += 1
         return out
@@ -218,6 +232,7 @@ def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_decode: valid_len must be a host int in "
                          f"[1, {s}], got {valid_len!r}")
     if _check_heads("attention_decode", {"q": q, "k": k, "v": v}, d):
+        _check_rows_aligned("attention_decode", {"q": q, "k": k, "v": v})
         out = decode_attention_cuda(q, k, v, int(valid_len))
         LAUNCHES["decode_attention"] += 1
         return out

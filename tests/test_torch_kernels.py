@@ -241,8 +241,9 @@ from repro.kernels.decode_attention import \
     decode_attention as j_decode_attention  # noqa: E402
 from repro.kernels.flash_attention import \
     flash_attention as j_flash_attention  # noqa: E402
-from repro_torch.kernels.decode_attention import \
-    decode_attention_plain  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    _COUNTERS, BLOCKS_PER_SM, MAX_SPLITS, MIN_KEYS_PER_SPLIT, _counters,
+    decode_attention_plain, split_bounds, split_plan)
 from repro_torch.kernels.flash_attention import \
     flash_attention_plain  # noqa: E402
 
@@ -453,8 +454,8 @@ def test_attention_decode_rejects_what_the_kernel_does_not_take(bad, error):
 
 
 def test_tensor_core_path_requires_16_byte_rows():
-    """The bf16 flash-attention kernel reads rows 16 bytes at a time; the
-    check runs before a CUDA launch and is exercised here on CPU tensors."""
+    """The attention kernels read rows 16 bytes at a time; the check runs
+    before a CUDA launch and is exercised here on CPU tensors."""
     x = torch.zeros((1, 2, 8, 40), dtype=torch.bfloat16)
     ops._check_rows_aligned("attention", {"q": x[..., :32]})  # rows of 80 B
     with pytest.raises(ValueError, match="16-byte"):
@@ -464,6 +465,80 @@ def test_tensor_core_path_requires_16_byte_rows():
         ops._check_rows_aligned("attention", {"k": y})
     ops._check_rows_aligned("attention",
                             {"v": torch.zeros((1, 8, 2, 32)).transpose(1, 2)})
+
+
+def test_row_alignment_counts_bytes_in_float32():
+    """B6 takes float32 too: its rows need 16 bytes, i.e. strides in
+    multiples of 4 float32 elements (8 bf16)."""
+    x = torch.zeros((2, 6, 36))
+    ops._check_rows_aligned("attention_decode", {"q": x[..., :32]})
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check_rows_aligned("attention_decode",
+                                {"q": torch.zeros((2, 6, 34))[..., :32]})
+
+
+def test_tma_strides_reject_broadcast_views():
+    """B5's bf16 path loads k and v through TMA tensor maps, which cannot
+    step a dim of extent > 1 by stride 0; a dim of extent 1 may have any
+    stride."""
+    k = torch.zeros((2, 1, 64, 32), dtype=torch.bfloat16)
+    ops._check_tma_strides("attention", {"k": k})
+    ops._check_tma_strides("attention",
+                           {"k": torch.zeros((1, 64, 2, 32))[:, :, :1]
+                            .transpose(1, 2)})
+    with pytest.raises(ValueError, match="stride-0"):
+        ops._check_tma_strides("attention", {"v": k.expand(2, 3, 64, 32)})
+
+
+def test_attention_decode_checks_alignment_before_a_launch(monkeypatch):
+    """On the CUDA path, ops.attention_decode validates row alignment before
+    it reaches the kernel (exercised on CPU tensors routed as CUDA)."""
+    (_, q), (_, k), (_, v) = _heads(23, "float32", (2, 4, 32),
+                                    (2, 16, 2, 34), (2, 16, 2, 34))
+    monkeypatch.setattr(ops, "_check_heads", lambda *args: True)
+    monkeypatch.setattr(ops, "decode_attention_cuda",
+                        lambda *args: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.attention_decode(q, k[..., :32], v[..., :32], 9)
+
+
+@pytest.mark.parametrize("bh,valid_len", [
+    (4, 2079), (4, 1024), (4, 1337), (4, 1), (4, 15), (4, 16), (4, 17),
+    (1, 5000), (8, 2079), (64, 299), (512, 32000), (2, 4999)])
+@pytest.mark.parametrize("n_sms", [132, 114])
+def test_decode_split_plan_covers_every_key_once(bh, valid_len, n_sms):
+    n = split_plan(bh, valid_len, n_sms)
+    assert 1 <= n <= min(valid_len, MAX_SPLITS)
+    bounds = split_bounds(valid_len, n)
+    keys = [key for lo, hi in bounds for key in range(lo, hi)]
+    assert keys == list(range(valid_len))            # each key exactly once
+    assert min(hi - lo for lo, hi in bounds) >= min(valid_len,
+                                                    MIN_KEYS_PER_SPLIT)
+    # enough blocks for 2 per SM unless the 16-key floor or the cap binds
+    assert (n * bh >= BLOCKS_PER_SM * n_sms
+            or n == valid_len // MIN_KEYS_PER_SPLIT or n == MAX_SPLITS
+            or n == 1)
+
+
+def test_decode_split_plan_at_the_decode_shape():
+    """gemma3-1b's decode (B = 4, Hkv = 1, 2079 keys) on an H100's 132 SMs:
+    66 splits of 31-32 keys, 2 blocks per SM."""
+    n = split_plan(4, 2079, 132)
+    assert n == 66 and 4 * n >= 2 * 132
+    assert {hi - lo for lo, hi in split_bounds(2079, n)} == {31, 32}
+
+
+def test_decode_counters_are_zeroed_once_and_grown():
+    device = torch.device("cpu")
+    _COUNTERS.pop(device, None)
+    first = _counters(device, 8)
+    assert first.dtype == torch.int32 and first.numel() >= 8
+    assert not first.any()
+    assert _counters(device, 8) is first              # cached
+    grown = _counters(device, first.numel() + 1)
+    assert grown.numel() > first.numel() and not grown.any()
+    assert _counters(device, 8) is grown
+    _COUNTERS.pop(device, None)
 
 
 def _cuda_heads(seed, dtype, *shapes):
@@ -476,7 +551,14 @@ def _cuda_heads(seed, dtype, *shapes):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hkv,s,d,window", [
     (4, 4, 1, 2048, 256, 1024), (4, 4, 1, 2048, 256, 0),
-    (2, 8, 2, 1100, 128, 0), (1, 4, 1, 77, 32, 16)])
+    (2, 8, 2, 1100, 128, 0), (1, 4, 1, 77, 32, 16),
+    (2, 4, 1, 77, 32, 0),          # D = 32 (64-byte swizzle), ragged S
+    (1, 2, 2, 1100, 64, 0),        # D = 64, G = 1
+    (1, 4, 2, 200, 128, 0),        # G = 2
+    (1, 8, 1, 300, 64, 0),         # G = 8
+    (1, 6, 2, 100, 64, 0),         # G = 3: a tile's heads are no TMA box
+    (1, 4, 1, 500, 256, 10),       # a window shorter than a tile
+    (1, 4, 1, 40, 256, 0)])        # S shorter than a tile
 def test_cuda_flash_attention_matches_plain(dtype, b, hq, hkv, s, d, window):
     q, k, v = _cuda_heads(0, dtype, (b, hq, s, d), (b, hkv, s, d),
                           (b, hkv, s, d))
@@ -488,9 +570,31 @@ def test_cuda_flash_attention_matches_plain(dtype, b, hq, hkv, s, d, window):
 
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (4, 4, 1, 2048, 256, 1024), (2, 8, 2, 1100, 128, 0),
+    (1, 4, 1, 77, 32, 0)])
+def test_cuda_flash_attention_takes_serve_layout_views(dtype, b, hq, hkv, s,
+                                                       d, window):
+    """Transposed views of (B, S, H, D) tensors, as the model hands them
+    in: the tensor maps order the dims by stride; no copy."""
+    q, k, v = _cuda_heads(4, dtype, (b, s, hq, d), (b, s, hkv, d),
+                          (b, s, hkv, d))
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    tol = ATTN_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    got = ops.attention(q, k, v, window=window)
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v, window=window), **tol)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hkv,s,d,valid,lo", [
     (4, 4, 1, 2080, 256, 2079, 0), (4, 4, 1, 2080, 256, 2079, 1055),
-    (2, 8, 2, 512, 64, 317, 0), (1, 8, 1, 77, 32, 1, 0)])
+    (2, 8, 2, 512, 64, 317, 0), (1, 8, 1, 77, 32, 1, 0),
+    (4, 4, 1, 2080, 256, 1337, 0),  # 66 splits that do not divide 1337
+    (2, 2, 2, 40, 128, 1, 0),       # valid_len 1
+    (64, 8, 8, 300, 128, 299, 0)])  # one split per (batch, KV head)
 def test_cuda_decode_attention_matches_plain(dtype, b, hq, hkv, s, d, valid,
                                              lo):
     q, k, v = _cuda_heads(1, dtype, (b, hq, d), (b, s, hkv, d),
@@ -500,6 +604,25 @@ def test_cuda_decode_attention_matches_plain(dtype, b, hq, hkv, s, d, valid,
         ops.attention_decode(q, k[:, lo:valid], v[:, lo:valid], valid - lo),
         decode_attention_plain(q, k[:, lo:valid], v[:, lo:valid], valid - lo),
         **tol)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_resets_its_tickets(dtype):
+    """Two calls of different shapes, back to back and then again, give
+    equal results: each launch leaves its ticket counters at 0."""
+    big = _cuda_heads(2, dtype, (4, 4, 256), (4, 2080, 1, 256),
+                      (4, 2080, 1, 256))
+    small = _cuda_heads(3, dtype, (2, 8, 64), (2, 100, 2, 64),
+                        (2, 100, 2, 64))
+    first = [ops.attention_decode(*big, 2079),
+             ops.attention_decode(*small, 37)]
+    second = [ops.attention_decode(*big, 2079),
+              ops.attention_decode(*small, 37)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert not _counters(big[0].device, 1).any()
 
 
 # ---------------------------------------------------------------------------
