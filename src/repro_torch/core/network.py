@@ -67,8 +67,10 @@ def sample_client_counts(generator: torch.Generator, n: int,
 
 
 def _uniform(generator, shape, lo, hi):
+    """lo + u (hi - lo), u ~ U[0, 1), in place: the same float32 operations
+    without two more (N, K) buffers a period."""
     u = torch.rand(shape, generator=generator, device=generator.device)
-    return lo + u * (hi - lo)
+    return u.mul_(hi - lo).add_(lo)
 
 
 def services_from_draws(client_counts: torch.Tensor, k_max: int,

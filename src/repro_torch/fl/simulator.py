@@ -116,7 +116,7 @@ def _static_draws(cfg: SimConfig, net: network.NetworkConfig
                     cfg.n_services_total, cfg.p_arrive)
     std = np.sqrt(max(cfg.var_clients, 1e-9))
     eps = torch.randn((cfg.n_services_total,),
-                      generator=generator("cpu", cfg.seed + 7, _DRAW_SALT))
+                      generator=generator(cfg.seed + 7, _DRAW_SALT))
     counts = torch.clamp(torch.round(cfg.mean_clients + std * eps),
                          net.k_min, _k_cap(cfg))
     return arrivals.numpy().astype(np.int64), counts.numpy().astype(np.int64)
@@ -127,16 +127,18 @@ def default_sampler(cfg: SimConfig, net: network.NetworkConfig, counts,
     """The per-period draws of an episode on ``device``: ``sample_draws`` on
     a generator seeded from (cfg.seed, period), the scenario draws from
     (cfg.seed, period, stream), the initial states' from (cfg.seed,
-    stream)."""
-    counts_t = torch.as_tensor(np.array(counts), dtype=torch.int32,
-                               device=device)
+    stream).  Every draw is made on the CPU and then moved to ``device``,
+    so one seed runs the same episode on every device."""
+    counts_t = torch.as_tensor(np.array(counts), dtype=torch.int32)
     k_max = _k_cap(cfg)
     words = (cfg.seed + 7,)
 
     def sampler(period: int) -> PeriodDraws:
-        raw = network.sample_draws(generator(device, *words, period),
+        raw = network.sample_draws(generator(*words, period),
                                    cfg.n_services_total, net, k_max=k_max,
                                    client_counts=counts_t)
+        raw = network.ServiceDraws(*(x.to(device) if torch.is_tensor(x)
+                                     else x for x in raw))
         return PeriodDraws(raw, GeneratorSource(device, *words, period),
                            GeneratorSource(device, *words) if period == 0
                            else None)

@@ -34,6 +34,8 @@ ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 MLSTM_HEAD_DIM_STEP = 64    # mLSTM head dims: multiples of the kernel's
 MLSTM_MAX_HEAD_DIM = 1024   # head-dim tile, up to what its C slice fits
 
+# Launches per kernel; "mlstm_chunk" counts calls, each of which launches
+# the states and the outputs kernel in bfloat16 (one kernel in float32).
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -160,9 +162,10 @@ def _check_heads(name: str, tensors: dict, d: int) -> bool:
 
 
 def _check_rows_aligned(name: str, tensors: dict) -> None:
-    """The attention kernels read rows 16 bytes at a time (B5's bf16 path
-    by TMA, B6 by cp.async): every pointer and (batch, head, position)
-    stride must keep rows 16-byte aligned."""
+    """The attention and bf16 mLSTM kernels read rows 16 bytes at a time
+    (B5's bf16 path by TMA, B6 and B7's bf16 path by cp.async): every
+    pointer and (batch, head, position) stride must keep rows 16-byte
+    aligned."""
     for key, x in tensors.items():
         if x.data_ptr() % 16 or any(
                 (st * x.element_size()) % 16 for st in x.stride()[:-1]):
@@ -288,6 +291,8 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"(C, n, m) of shapes {shapes} on {q.device}")
     if _check_mlstm({"q": q, "k": k, "v": v, "i_gate": i_gate,
                      "f_gate": f_gate}):
+        if q.dtype == torch.bfloat16:  # the tensor-core kernels' cp.async
+            _check_rows_aligned("mlstm", {"q": q, "k": k, "v": v})
         out = mlstm_chunk_cuda(q, k, v, i_gate, f_gate, state)
         LAUNCHES["mlstm_chunk"] += 1
         return out

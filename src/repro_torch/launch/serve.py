@@ -56,13 +56,20 @@ def resolve_config(arch: str, reduced: bool):
 def sample_token(gen: torch.Generator, logits: torch.Tensor,
                  temperature: float) -> torch.Tensor:
     """(B, 1) next token from final-position logits: categorical at
-    ``temperature`` > 0 (drawn from ``gen``), greedy argmax at 0.  Used for
-    EVERY generated token, including the first one off the prefill
-    logits."""
+    ``temperature`` > 0, greedy argmax at 0.  Used for EVERY generated
+    token, including the first one off the prefill logits.
+
+    The categorical draw is ``argmax(p / q)`` with q ~ Exp(1) per (row,
+    token), the exponential race that ``torch.multinomial`` runs for one
+    sample: q comes from ``gen`` (a CPU generator) and is moved to the
+    logits' device, so one seed samples the same noise on every device,
+    and on the CPU the tokens are ``multinomial``'s bit for bit."""
     last = logits[:, -1].float()
     if temperature > 0:
         probs = torch.softmax(last / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)
+        q = torch.empty(probs.shape, dtype=probs.dtype,
+                        device=gen.device).exponential_(generator=gen)
+        return torch.argmax(probs / q.to(probs.device), dim=-1, keepdim=True)
     return torch.argmax(last, dim=-1, keepdim=True)
 
 
@@ -115,9 +122,11 @@ def main(argv: list[str] | None = None) -> dict:
     params = model.cast_params(model.init(args.seed, device=args.device))
     max_len = args.prompt_len + args.gen
 
-    generator = torch.Generator(device=args.device).manual_seed(args.seed + 1)
+    # A CPU generator: the prompts and the sampling noise are the same for
+    # one seed on every device.
+    generator = torch.Generator().manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=generator, device=args.device)
+                            generator=generator).to(args.device)
     out, info = generate(model, params, {"tokens": prompts}, max_len=max_len,
                          gen=args.gen, temperature=args.temperature,
                          generator=generator)

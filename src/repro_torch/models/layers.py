@@ -17,7 +17,7 @@ flash-attention and decode kernels); these serve as test oracles.
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -29,21 +29,29 @@ Params = dict[str, Any]
 # Initializers.
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape: tuple[int, ...],
-            device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=device)
+def _normal(gen: torch.Generator, shape: tuple[int, ...], device,
+            op: Callable[[torch.Tensor], torch.Tensor] = lambda x: x
+            ) -> torch.Tensor:
+    """float32 standard normals of ``shape`` drawn on ``gen``'s device (the
+    CPU: ``transformer._generator``), ``op`` applied there, then moved to
+    ``device``, one tensor at a time: the same values on every device.
+    ``device="meta"`` draws nothing."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return op(x).to(device)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: float | None = None, *, device) -> torch.Tensor:
     s = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    return _normal(gen, (d_in, d_out), device) * s
+    return _normal(gen, (d_in, d_out), device, lambda x: x * s)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, *,
                device) -> torch.Tensor:
-    return _normal(gen, (vocab, d_model), device) * 0.02
+    return _normal(gen, (vocab, d_model), device, lambda x: x * 0.02)
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,8 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, d_inner: int, *,
     dh = d_inner // h
     return {
         # block-diagonal per-head qkv, (H, Dh, 3Dh), as in the JAX package
-        "w_qkv": layers._normal(gen, (h, dh, 3 * dh), device) / math.sqrt(dh),
+        "w_qkv": layers._normal(gen, (h, dh, 3 * dh), device,
+                                lambda x: x / math.sqrt(dh)),
         "w_if": layers.dense_init(gen, d_inner, 2 * h, scale=0.01,
                                   device=device),
         "if_bias": torch.cat([_zeros((h,), device),
@@ -217,7 +218,8 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, d_inner: int, *,
     dh = d_inner // h
     return {
         "w_zifo": layers.dense_init(gen, d_inner, 4 * d_inner, device=device),
-        "r_zifo": layers._normal(gen, (h, dh, 4 * dh), device) / math.sqrt(dh),
+        "r_zifo": layers._normal(gen, (h, dh, 4 * dh), device,
+                                 lambda x: x / math.sqrt(dh)),
         "b_zifo": _zeros((4 * d_inner,), device),
         "o_norm": _zeros((dh,), device),
     }

@@ -122,12 +122,13 @@ def apply_layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
 # The full model.
 # ---------------------------------------------------------------------------
 
-def _generator(seed: int | torch.Generator, device) -> torch.Generator:
+def _generator(seed: int | torch.Generator) -> torch.Generator:
+    """The init's generator: ``seed`` itself, or a CPU generator seeded
+    with it.  The CPU's stream and a card's differ for one seed, so the
+    weights are drawn on the CPU and copied to their device."""
     if isinstance(seed, torch.Generator):
         return seed
-    # meta tensors draw nothing; any generator will do for them
-    where = "cpu" if torch.device(device).type == "meta" else device
-    return torch.Generator(device=where).manual_seed(int(seed))
+    return torch.Generator().manual_seed(int(seed))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,11 +144,12 @@ class CausalLM:
     # ---------------- init ----------------
     def init(self, seed: int | torch.Generator, *,
              device="cuda") -> Params:
-        """float32 parameters drawn from a generator on ``device`` (seeded
-        with ``seed``, or ``seed`` itself); ``device="meta"`` gives shapes
-        only."""
+        """float32 parameters on ``device``, drawn on the CPU from a
+        generator seeded with ``seed`` (or ``seed`` itself), so one seed
+        gives the same weights on every device; ``device="meta"`` gives
+        shapes only."""
         cfg = self.cfg
-        gen = _generator(seed, device)
+        gen = _generator(seed)
         p: Params = {
             "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        device=device),

@@ -51,7 +51,8 @@ def init_mlstm_block(gen: torch.Generator, cfg: ModelConfig, *,
     return {
         "ln": torch.zeros((d,), dtype=torch.float32, device=device),
         "w_up": layers.dense_init(gen, d, 2 * d_inner, device=device),
-        "conv_w": layers._normal(gen, (cfg.ssm_conv, d_inner), device) * 0.2,
+        "conv_w": layers._normal(gen, (cfg.ssm_conv, d_inner), device,
+                                 lambda x: x * 0.2),
         "cell": ssm.init_mlstm(gen, cfg, d_inner, device=device),
         "w_down": layers.dense_init(gen, d_inner, d, device=device),
     }
@@ -129,12 +130,13 @@ class XLSTMLM:
 
     # ---------------- init ----------------
     def init(self, seed: int | torch.Generator, *, device="cuda") -> Params:
-        """float32 parameters drawn from a generator on ``device`` (seeded
-        with ``seed``, or ``seed`` itself); ``device="meta"`` gives shapes
-        only."""
+        """float32 parameters on ``device``, drawn on the CPU from a
+        generator seeded with ``seed`` (or ``seed`` itself), so one seed
+        gives the same weights on every device; ``device="meta"`` gives
+        shapes only."""
         cfg = self.cfg
         n_super, n_m = self._layout
-        gen = _generator(seed, device)
+        gen = _generator(seed)
         p: Params = {
             "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        device=device),

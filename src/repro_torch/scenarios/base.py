@@ -54,10 +54,13 @@ STREAMS = {
 }
 
 
-def generator(device, *words: int) -> torch.Generator:
-    """A generator on ``device`` seeded from a hash of ``words``."""
+def generator(*words: int) -> torch.Generator:
+    """A CPU generator seeded from a hash of ``words``.  Every seeded draw
+    of the port is made on the CPU and then moved to its device: the CPU's
+    generator and a card's give different streams from one seed, so a
+    generator on the card would make an episode depend on where it runs."""
     seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
+    return torch.Generator().manual_seed(int(seed))
 
 
 class Source(Protocol):
@@ -78,7 +81,9 @@ def _check_stream(stream: str) -> None:
 
 class GeneratorSource:
     """Draws from one generator per stream, seeded from ``words`` and the
-    stream's (salt, index), so no draw depends on which others were made."""
+    stream's (salt, index), so no draw depends on which others were made.
+    The draws are made on the CPU (``generator``) and moved to ``device``,
+    so one seed gives the same draws on every device."""
 
     def __init__(self, device, *words: int):
         self.device = torch.device(device)
@@ -86,19 +91,17 @@ class GeneratorSource:
 
     def _gen(self, stream: str) -> torch.Generator:
         _check_stream(stream)
-        return generator(self.device, *self.words, *STREAMS[stream])
+        return generator(*self.words, *STREAMS[stream])
 
     def normal(self, stream, shape):
-        return torch.randn(shape, generator=self._gen(stream),
-                           device=self.device)
+        return torch.randn(shape, generator=self._gen(stream)).to(self.device)
 
     def uniform(self, stream, shape):
-        return torch.rand(shape, generator=self._gen(stream),
-                          device=self.device)
+        return torch.rand(shape, generator=self._gen(stream)).to(self.device)
 
     def exponential(self, stream, shape):
-        out = torch.empty(shape, dtype=torch.float32, device=self.device)
-        return out.exponential_(generator=self._gen(stream))
+        out = torch.empty(shape, dtype=torch.float32)
+        return out.exponential_(generator=self._gen(stream)).to(self.device)
 
 
 class ArraySource:

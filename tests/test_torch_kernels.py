@@ -636,7 +636,8 @@ def test_cuda_decode_attention_resets_its_tickets(dtype):
 
 from repro.kernels.mlstm_chunk import mlstm_chunk as j_mlstm_chunk  # noqa: E402
 from repro.models import ssm as j_ssm  # noqa: E402
-from repro_torch.kernels.mlstm_chunk import mlstm_chunk_plain  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import (  # noqa: E402
+    CHUNK, chunk_outputs_plain, chunk_states_plain, mlstm_chunk_plain)
 
 MLSTM_TOL = {"float32": dict(rtol=5e-4, atol=5e-4),
              "bfloat16": dict(rtol=5e-2, atol=5e-2)}
@@ -775,6 +776,97 @@ def test_mlstm_rejects_what_the_kernel_does_not_take(bad, error):
         state = (state[0], state[1][..., :32], state[2])
     with pytest.raises(error):
         ops.mlstm(q, k, v, ig, fg, state)
+
+
+# B7's bf16 path is two kernels, each with a plain version: the states at
+# every chunk's start, then y from them.  Composed they are the chunkwise
+# form over chunks of CHUNK (the last ragged), held here to JAX's.
+
+def _jax_chunkwise(jx, state=None):
+    s = jx[0].shape[2]
+    return j_ssm.mlstm_chunkwise(*jx[:5], state,
+                                 chunk=CHUNK if s % CHUNK == 0 else s)
+
+
+@pytest.mark.parametrize("s,with_state", [
+    (512, False), (512, True), (300, False), (77, True), (1, False)])
+def test_chunk_states_then_outputs_match_jax_chunkwise(s, with_state):
+    """At the kernels' chunk length, at ragged lengths and from a given
+    state: y and the final (C, n, m) equal JAX's ssm.mlstm_chunkwise, and
+    the composition equals mlstm_chunk_plain."""
+    pairs = _mlstm_pairs(26, "float32", 2, 2, s, 64, state=with_state)
+    jx, tx = [p[0] for p in pairs], [p[1] for p in pairs]
+    state = tx[5] if with_state else None
+    states, final = chunk_states_plain(*tx[:5], state)
+    n_chunks = -(-s // CHUNK)
+    assert [x.shape for x in states] == [(2, 2, n_chunks, 64, 64),
+                                         (2, 2, n_chunks, 64), (2, 2, n_chunks)]
+    y = chunk_outputs_plain(*tx[:5], states)
+    jy, jstate = _jax_chunkwise(jx, jx[5] if with_state else None)
+    _mlstm_close(y, jy, "float32")
+    for got, want in zip(final, jstate):
+        _mlstm_close(got, want, "float32")
+    py, pstate = mlstm_chunk_plain(*tx[:5], state)
+    _mlstm_close(y, py.numpy(), "float32")
+    for got, want in zip(final, pstate):
+        _mlstm_close(got, want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("s,with_state", [(768, False), (700, True)])
+def test_chunk_states_equal_jax_on_each_prefix(s, with_state):
+    """The state at chunk c's start is JAX's final state over the first
+    c CHUNK positions (the given state at c = 0)."""
+    pairs = _mlstm_pairs(27, "float32", 1, 2, s, 64, state=with_state)
+    jx, tx = [p[0] for p in pairs], [p[1] for p in pairs]
+    states, _ = chunk_states_plain(*tx[:5], tx[5] if with_state else None)
+    j_state = jx[5] if with_state else None
+    for c in range(-(-s // CHUNK)):
+        if c == 0:
+            if not with_state:
+                assert not states[0][:, :, 0].any() and not states[1][:, :, 0].any()
+                assert bool((states[2][:, :, 0] == -1e30).all())
+                continue
+            want = j_state
+        else:
+            prefix = [x[:, :, :c * CHUNK] for x in jx[:5]]
+            _, want = j_ssm.mlstm_chunkwise(*prefix, j_state, chunk=CHUNK)
+        for got, w in zip(states, want):
+            _mlstm_close(got[:, :, c], w, "float32")
+
+
+@needs_cuda
+@pytest.mark.parametrize("b,h,s,dh,with_state", [
+    (4, 4, 2048, 1024, False), (2, 2, 1100, 128, True), (1, 4, 77, 64, True),
+    (1, 2, 600, 192, True), (2, 1, 1, 64, False)])
+def test_cuda_mlstm_states_and_outputs_match_their_plain_versions(
+        b, h, s, dh, with_state):
+    """bf16: the states kernel's chunk states and final state against
+    chunk_states_plain; the outputs kernel's y, on those states, against
+    chunk_outputs_plain."""
+    from repro_torch.kernels.mlstm_chunk import (mlstm_outputs_cuda,
+                                                 mlstm_states_cuda)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale + shift
+
+    q, k, v = (draw(b, h, s, dh).to(torch.bfloat16) for _ in range(3))
+    k = k / dh ** 0.5
+    ig = draw(b, h, s, scale=0.5).to(torch.bfloat16)
+    fg = draw(b, h, s, scale=0.5, shift=2.0).to(torch.bfloat16)
+    state = None
+    if with_state:
+        state = (draw(b, h, dh, dh, scale=0.3), draw(b, h, dh, scale=0.3),
+                 draw(b, h, scale=0.5))
+    tol = MLSTM_TOL["bfloat16"]
+    states, final = mlstm_states_cuda(k, v, ig, fg, state)
+    want_states, want_final = chunk_states_plain(q, k, v, ig, fg, state)
+    for got, want in zip((*states, *final), (*want_states, *want_final)):
+        torch.testing.assert_close(got.float(), want, **tol)
+    y = mlstm_outputs_cuda(q, k, v, ig, fg, states)
+    torch.testing.assert_close(y, chunk_outputs_plain(q, k, v, ig, fg, states),
+                               **tol)
 
 
 @needs_cuda
