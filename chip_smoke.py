@@ -63,7 +63,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (CUDA events, median of 21 calls, host launch path included), and the
    bound (the larger of float32 operations over 67 TFLOP/s and bytes
    over 3.35 TB/s, counting about 5 operations per valid (row, client,
-   trip), 6 for mbdf_demand's per price);
+   trip), 6 for mbdf_demand's per price); market_clear's outputs bitwise
+   the same over 21 more calls (lam above all: every block folds the
+   same partials in the same order).  Then B3 and B4 in parts, through
+   their own launch arguments (b3_parts: no trips, 6 trips without
+   bisection, plus the 6 x 24 Newton steps, the full call, at both
+   shapes and on a copy of each market with every row active and full,
+   giving the cost of a trip, of a bisection step and of the zero lanes;
+   b4_parts: M = 5 at alpha_fair 0.5 and 0, with 48 and with 0 trips,
+   on the market and its full copy), each with the count of divide
+   checks and slow-path calls in the kernels' SASS (cuobjdump); and the
+   edge matrix (edge_matrix: tests/test_tile_edges.py's shapes mirrored,
+   N in {1, 31, 8191} x K in {1, 7, 31, 32, 33, 45, 64, 65, 128, 1024},
+   an all-inactive market and one with a single active row, B4 at M in
+   {1, 5, 8, 9}), each kernel against its plain version within the
+   tolerances above, B4's demands >= 0, non-increasing and 0 on
+   inactive rows; before it, the lane group the kernels pick for every
+   K up to 1024 (L in 8, 16, 32 and K <= L R <= 32 L);
 4. the attention kernels (B5 flash_attention, B6 decode_attention)
    against their plain versions on the card, in bfloat16 and float32:
    B5 at gemma3-1b's prefill shape (B = 4, Hq = 4, Hkv = 1, S = 2048,
@@ -114,8 +130,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    per episode: rounds and durations equal (see compare_episodes for the
    one allowed exception), per-period b and f within tolerance (an
    auction's f beyond it must be the reference's f*(b) at its own b, see
-   check_surplus_split), no solver rescue, and the kernels each backend
-   launched (none for "reference");
+   check_surplus_split), no solver rescue, the kernels each backend
+   launched (none for "reference"), and at market scale draw_wait_ms:
+   the median ms the period loop waited on a period's draws, periods 1-9
+   (the engine's own sampler draws the next periods on host threads
+   there); then, outside the counted paths, draw_samplers: the market
+   coop episode and the paper's under three samplers in turns
+   (prefetching, inline, and drawn before the episode and already on the
+   card), their periods/s and equal durations;
 8. the auction entry on the card: run_auction at 8192 services, M = 5,
    B = 8192 MHz (b sums to B, charges cover the fairness cost, the same
    call on the CPU agrees), and charges(method="prefix") against "rerun"
@@ -146,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -497,6 +520,7 @@ def kernel_phase(n: int, k: int, m: int) -> dict:
         if name == "market_clear":
             checks["b_total"] = check_close(tag, got[0].sum(),
                                             torch.tensor(B_TOTAL), "b")
+            checks["bitwise_repeats"] = bitwise_repeats(tag, kern, got)
         row = {"name": name, "n": n, "k": k,
                "max_abs_err": max(checks[key]["max_dev"] for key in keys),
                "checks": checks,
@@ -537,6 +561,213 @@ def kernel_phase(n: int, k: int, m: int) -> dict:
     emit({"phase": "kernel_vs_plain", **row})
     out[name] = row
     return out
+
+
+def bitwise_repeats(tag: str, kern, first, reps: int = 21) -> int:
+    """Raise unless ``reps`` more calls of ``kern`` give the bits of
+    ``first`` in every output (lam above all: every block of the launch
+    must fold the same partials in the same order)."""
+    for i in range(reps):
+        again = kern()
+        for j, (x, y) in enumerate(zip(first, again)):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise AssertionError(f"{tag}: call {i + 1} changed output "
+                                     f"{j}'s bits")
+    return reps
+
+
+# The shape matrix of tests/test_tile_edges.py, mirrored for B3 and B4 on
+# the card: every lane-group width and the ragged edges of N and K.
+EDGE_K = (1, 7, 31, 32, 33, 45, 64, 65, 128, 1024)
+EDGE_N = (1, 31, 8191)
+EDGE_M = (1, 5, 8, 9)
+
+
+def edge_market(n: int, k: int, active: str = "ragged"):
+    """An (n, k) market from numpy's generator: alpha ~ U(0.01, 0.3),
+    t^C ~ U(0.01, 0.06), each row's clients a ragged prefix, one row in
+    ten inactive (rows 5, 15, ...); ``active`` "none" (every row inactive) or "one" (row
+    n // 2 alone active)."""
+    from repro_torch.core.types import ServiceSet
+
+    rng = np.random.default_rng([n, k])
+    alpha = rng.uniform(0.01, 0.3, (n, k)).astype(np.float32)
+    t_comp = rng.uniform(0.01, 0.06, (n, k)).astype(np.float32)
+    mask = np.arange(k)[None, :] < rng.integers(1, k + 1, (n, 1))
+    if active == "ragged":
+        mask[5::10] = False
+    else:
+        mask[:] = False
+        if active == "one":
+            mask[n // 2, : max(1, k // 2)] = True
+    alpha = torch.from_numpy(np.where(mask, alpha, 0.0)).to(DEVICE)
+    t_comp = torch.from_numpy(np.where(mask, t_comp, 0.0)).to(DEVICE)
+    return ServiceSet(alpha=alpha.contiguous(), t_comp=t_comp.contiguous(),
+                      mask=torch.from_numpy(mask).to(DEVICE))
+
+
+def edge_matrix_phase() -> dict:
+    """B3 and B4 against their plain versions on the card over the edge
+    matrix, after the lane group chosen for every K up to ops.MAX_K is checked
+    (L in 8, 16, 32, K <= L R <= 32 L): N x K, an all-inactive and a one-active-row market, and B4 at
+    every M of EDGE_M, on price grids 1.15 m p_max / (M + 1): the top
+    prices pass p_max (the opt-out), and none lies within 2% of it, where
+    the demand jumps to 0 and an ulp of q decides the side.  B3 is seeded
+    warm at 1.03 x the plain version's cold price (12 trips of 48 steps); tolerances as in phase 3."""
+    from repro_torch.core import intra
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.market_clear import (grid_limits,
+                                                  market_clear_plain,
+                                                  mbdf_demand_plain)
+
+    dev = torch.device(DEVICE).index or 0
+    for k in range(1, ops.MAX_K + 1):
+        lanes, regs = grid_limits(k, dev)[2:]
+        if lanes not in (8, 16, 32) or not k <= lanes * regs <= 32 * lanes:
+            raise AssertionError(f"lane group ({lanes}, {regs}) for K = {k}")
+    cases = [(n, k, "ragged") for n in EDGE_N for k in EDGE_K]
+    cases += [(31, 45, "none"), (31, 45, "one")]
+    worst = {"market_clear": 0.0, "mbdf_demand": 0.0}
+    groups = set()
+    for n, k, active in cases:
+        svc = edge_market(n, k, active)
+        a, t = svc.alpha, svc.t_comp
+        groups.add(grid_limits(k, dev)[2:])
+        cold = market_clear_plain(a, t, B_TOTAL, torch.tensor(
+            -1.0, device=DEVICE), iters=12, newton_inner_iters=48)[2]
+        lam_prev = (cold * 1.03).contiguous()
+        tag = f"market_clear@{n}x{k}/{active}"
+        got = ops.market_clear(a, t, B_TOTAL, lam_prev)
+        want = market_clear_plain(a, t, B_TOTAL, lam_prev)
+        for g, w, key in zip(got, want, ("b", "f", "lam")):
+            worst["market_clear"] = max(worst["market_clear"], check_close(
+                tag, g, w, key)["max_dev"])
+        if active != "none":
+            check_close(tag, got[0].sum(), torch.tensor(B_TOTAL), "b")
+        inactive = a.sum(dim=1) == 0
+        pmax = intra.p_max(svc)
+        for m in EDGE_M:
+            steps = torch.arange(1, m + 1, dtype=torch.float32, device=DEVICE)
+            prices = (1.15 * steps[None, :] * pmax[:, None]
+                      / (m + 1)).contiguous()
+            tag = f"mbdf_demand@{n}x{k}x{m}/{active}"
+            got = ops.mbdf_demand(a, t, prices, 0.5)
+            want = mbdf_demand_plain(a, t, prices, 0.5)
+            worst["mbdf_demand"] = max(worst["mbdf_demand"], check_close(
+                tag, got, want, "demand")["max_dev"])
+            if not bool((got >= 0).all()):
+                raise AssertionError(f"{tag}: negative demand")
+            if not bool((got[:, 1:] <= got[:, :-1]).all()):
+                raise AssertionError(f"{tag}: demand rises along the grid")
+            if not bool((got[inactive] == 0).all()):
+                raise AssertionError(f"{tag}: inactive rows demand bandwidth")
+    torch.cuda.synchronize()
+    row = {"shapes": len(cases), "b4_grids": len(cases) * len(EDGE_M),
+           "lane_groups": sorted(groups), "max_dev": worst}
+    emit({"phase": "edge_matrix", **row})
+    return row
+
+
+def full_market(n: int, k: int):
+    """The market of ``market`` drawn with every row active and full: no
+    alpha = 0 anywhere (the zero lanes' share of B3's and B4's time)."""
+    from repro_torch.core import network
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    counts = torch.full((n,), k, dtype=torch.int32, device=DEVICE)
+    svc, _ = network.sample_services(gen, n, k_max=k, client_counts=counts)
+    return svc
+
+
+def divide_sass(name: str) -> dict | None:
+    """The built library's SASS per kernel function (cuobjdump -sass):
+    how many divide checks (FCHK) and subroutine calls (CALL, the IEEE
+    divide's slow path) each holds.  The text goes to build/sass_{name}.txt.
+    None where the toolkit has no cuobjdump."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(_build._library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    (ROOT / "build" / f"sass_{name}.txt").write_text(text)
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"FCHK": 0, "CALL": 0, "MUFU.RCP": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                if f" {op}" in line:
+                    counts[fn][op] += 1
+    return counts
+
+
+def b3_parts() -> dict:
+    """B3's time in parts, from its own launch arguments, at both market
+    shapes and on the full copy of each: (a) no trips (the barriers of the
+    bracket top and the projection, loads, stores), (b) six Newton trips
+    without bisection (their reductions and barriers), (c) plus the 6 x 24
+    Newton bisection steps, (d) the full call (plus 2 x 48 steps of the
+    final demand and the frequency).  Derived: per trip, per bisection
+    step (one step of every row), and the full copy's difference."""
+    from repro_torch.core import disba
+    from repro_torch.kernels import ops
+
+    variants = {"a": (0, 0, 0), "b": (6, 0, 0), "c": (6, 0, 24),
+                "d": (6, 48, 24)}
+    out = {}
+    for n, k, _ in KERNEL_SHAPES:
+        for label, svc in ((f"{n}x{k}", market(n, k)),
+                           (f"{n}x{k}_full", full_market(n, k))):
+            a, t = svc.alpha, svc.t_comp
+            lam_prev = disba.solve_lambda_newton(svc, B_TOTAL).lam * 1.03
+            ms = {v: device_ms(lambda it=it: ops.market_clear(
+                      a, t, B_TOTAL, lam_prev, iters=it[0], inner_iters=it[1],
+                      newton_inner_iters=it[2]))
+                  for v, it in variants.items()}
+            out[label] = {**ms, "per_trip_ms": (ms["b"] - ms["a"]) / 6,
+                          "per_newton_step_ms": (ms["c"] - ms["b"]) / 144,
+                          "per_final_step_ms": (ms["d"] - ms["c"]) / 96}
+        out[f"{n}x{k}"]["full_minus_market_ms"] = (
+            out[f"{n}x{k}_full"]["d"] - out[f"{n}x{k}"]["d"])
+    row = {"variants": {v: {"iters": it[0], "inner_iters": it[1],
+                            "newton_inner_iters": it[2]}
+                        for v, it in variants.items()},
+           **out, "sass": divide_sass("market_clear")}
+    emit({"phase": "b3_parts", **row})
+    return row
+
+
+def b4_parts() -> dict:
+    """B4's time at M = 5 on the market and its full copy, at alpha_fair
+    0.5 and 0 (a_fair / (1 + f) divides 0 when alpha_fair is 0), and with
+    no bisection trips (iters 0: loads, the final demand, stores)."""
+    from repro_torch.core import auction
+    from repro_torch.kernels import ops
+
+    n, k, _ = KERNEL_SHAPES[0]
+    m = 5
+    out = {}
+    for label, svc in (("market", market(n, k)), ("full", full_market(n, k))):
+        a, t = svc.alpha, svc.t_comp
+        for alpha_fair in (0.5, 0.0):
+            prices = auction.uniform_truthful_bids(svc, m, alpha_fair).prices
+            for iters in (48, 0):
+                out[f"{label}@a={alpha_fair},iters={iters}"] = device_ms(
+                    lambda: ops.mbdf_demand(a, t, prices, alpha_fair,
+                                            iters=iters))
+    per_step = {key: (out[f"{key},iters=48"] - out[f"{key},iters=0"]) / 48
+                for key in ("market@a=0.5", "market@a=0.0", "full@a=0.5",
+                            "full@a=0.0")}
+    row = {"n": n, "k": k, "m": m, "ms": out, "per_step_ms": per_step,
+           "sass": divide_sass("mbdf_demand")}
+    emit({"phase": "b4_parts", **row})
+    return row
 
 
 def compare_episodes(name: str, got: dict, want: dict, period_s: float,
@@ -658,6 +889,37 @@ def f_at_own_b(sets: list, b_hist: np.ndarray):
     return f_at
 
 
+@contextlib.contextmanager
+def keeping_samplers(samplers: list):
+    """Within the block, every sampler an engine makes for itself (no
+    ``sampler`` given) is appended to ``samplers``; its ``waits`` are the
+    seconds the period loop waited on each period's draws."""
+    from repro_torch.fl import simulator
+
+    real = simulator._PrefetchingSampler
+
+    class Kept(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            samplers.append(self)
+
+    simulator._PrefetchingSampler = Kept
+    try:
+        yield samplers
+    finally:
+        simulator._PrefetchingSampler = real
+
+
+def draw_wait_ms(samplers: list) -> float | None:
+    """Median ms the period loop waited on a period's draws, periods 1-9
+    (period 0's draws cannot be made ahead); None where the engine drew
+    inline (periods under PREFETCH_MIN_SLOTS slots, the paper's)."""
+    if not samplers:
+        return None
+    (sampler,) = samplers
+    return 1e3 * float(np.median(sampler.waits[1:10]))
+
+
 def run_pair(cfg_kw: dict, label: str, must_finish: bool = True,
              net=None, arrivals=None, counts=None) -> dict:
     """One episode with the kernel backend, one with "reference", on the
@@ -669,7 +931,7 @@ def run_pair(cfg_kw: dict, label: str, must_finish: bool = True,
 
     backend = cfg_kw["intra_backend"]
     auction = cfg_kw["policy"] == "selfish"
-    runs, sets = {}, []
+    runs, sets, waits = {}, [], {}
     for bk in (backend, "reference"):
         cfg = simulator.SimConfig(**{**PAPER, **cfg_kw, "intra_backend": bk},
                                   collect_alloc=True)
@@ -677,13 +939,17 @@ def run_pair(cfg_kw: dict, label: str, must_finish: bool = True,
         before = dict(ops.LAUNCHES)
         record = (recording_sets(cfg.policy, sets) if auction and bk == backend
                   else contextlib.nullcontext())
+        samplers = []
         t0 = time.perf_counter()
-        with record:
+        with record, keeping_samplers(samplers):
             res = simulator.run_scan(cfg, net, arrivals=arrivals,
                                      counts=counts, device=DEVICE)
         sec = time.perf_counter() - t0
         runs[bk] = (res, sec, {name: ops.LAUNCHES[name] - before[name]
                                for name in ops.LAUNCHES})
+        waits[bk] = (draw_wait_ms(samplers),
+                     [1e3 * w for w in samplers[0].waits] if samplers
+                     else None)
     (kres, ksec, klaunch), (rres, rsec, rlaunch) = runs[backend], runs["reference"]
     _check_launches(label, backend,
                     (cfg_kw["policy"], cfg_kw["warm_start"], backend),
@@ -696,6 +962,9 @@ def run_pair(cfg_kw: dict, label: str, must_finish: bool = True,
            "kernel_periods_per_s": kres["periods"] / ksec,
            "reference_periods_per_s": rres["periods"] / rsec,
            "avg_duration": kres["avg_duration"], "launches": klaunch,
+           "draw_wait_ms": waits[backend][0],
+           "reference_draw_wait_ms": waits["reference"][0],
+           "draw_waits_ms": {bk: w[1] for bk, w in waits.items()},
            **compare_episodes(label, kres, rres, net.period_s, must_finish,
                               auction=auction,
                               f_at=f_at_own_b(sets, kres["history"]["b"]))}
@@ -703,27 +972,95 @@ def run_pair(cfg_kw: dict, label: str, must_finish: bool = True,
     return row
 
 
-def market_pair(policy: str, warm: bool, backend: str) -> dict:
-    """The market-scale episode: every service arrives at period 0 and gets
-    the paper's share of 1 MHz (B = 10 MHz over 10 services), so each runs
-    several rounds per period; 100 rounds (not 2000) let services finish,
-    at different periods, within the 10-period episode."""
+def market_kw() -> dict:
+    return dict(n_services_total=MARKET_N, max_periods=10,
+                rounds_required=100)
+
+
+def market_setting():
+    """The market-scale episode's network (the paper's 1 MHz a service),
+    arrivals (all at period 0) and client counts."""
     from repro_torch.fl import simulator
 
-    market_kw = dict(n_services_total=MARKET_N, max_periods=10,
-                     rounds_required=100)
-    cfg = simulator.SimConfig(**market_kw)
+    cfg = simulator.SimConfig(**market_kw())
     net = simulator._default_net(cfg)
     net = dataclasses.replace(net, total_bandwidth_mhz=(
         net.total_bandwidth_mhz * cfg.n_services_total
         / simulator.SimConfig().n_services_total))
     _, counts = simulator._static_draws(cfg, net)
+    return net, np.zeros(cfg.n_services_total, np.int64), counts
+
+
+def market_pair(policy: str, warm: bool, backend: str) -> dict:
+    """The market-scale episode: every service arrives at period 0 and gets
+    the paper's share of 1 MHz (B = 10 MHz over 10 services), so each runs
+    several rounds per period; 100 rounds (not 2000) let services finish,
+    at different periods, within the 10-period episode."""
+    net, arrivals, counts = market_setting()
     return run_pair(dict(policy=policy, warm_start=warm,
-                         intra_backend=backend, **market_kw),
+                         intra_backend=backend, **market_kw()),
                     f"{policy}{'-warm' if warm else ''}-{backend}"
                     f"-market{MARKET_N}", must_finish=False, net=net,
-                    arrivals=np.zeros(cfg.n_services_total, np.int64),
-                    counts=counts)
+                    arrivals=arrivals, counts=counts)
+
+
+def draw_samplers() -> dict:
+    """The measure of C6 and the evidence for PREFETCH_MIN_SLOTS: warm coop
+    on "megakernel", at market scale and at the paper's setting, under
+    three samplers run in turns (ABC CBA; periods/s of each, median of its
+    two runs): the prefetching sampler (the engine's own at market scale),
+    default_sampler inline (the engine's own at the paper's), and every
+    period's draws made before the episode and already on the card (the
+    episode with no host draws).  The episodes must agree in every
+    duration."""
+    from repro_torch.fl import simulator
+
+    out = {}
+    for label in ("market", "paper"):
+        common = dict(policy="coop", warm_start=True,
+                      intra_backend="megakernel", collect_alloc=True)
+        if label == "market":
+            net, arrivals, counts = market_setting()
+            cfg = simulator.SimConfig(**market_kw(), **common)
+        else:
+            cfg = simulator.SimConfig(**PAPER, **common)
+            net = simulator._default_net(cfg)
+            arrivals, counts = simulator._static_draws(cfg, net)
+        run = functools.partial(simulator.run_scan, cfg, net,
+                                arrivals=arrivals, counts=counts,
+                                device=DEVICE)
+        inline = simulator.default_sampler(cfg, net, counts, DEVICE)
+        card = [inline(p) for p in range(run(sampler=inline)["periods"])]
+        samplers = {
+            "prefetch": lambda: simulator._PrefetchingSampler(
+                cfg, net, counts, DEVICE),
+            "inline": lambda: inline,
+            "on_card": lambda: card.__getitem__}
+        rates, durations = {name: [] for name in samplers}, set()
+        for name in list(samplers) + list(samplers)[::-1]:
+            sampler = samplers[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = run(sampler=sampler)
+                torch.cuda.synchronize()
+            finally:
+                if name == "prefetch":
+                    sampler.close()
+            rates[name].append(res["periods"] / (time.perf_counter() - t0))
+            durations.add(tuple(res["durations"]))
+        if len(durations) != 1:
+            raise AssertionError(f"draw_samplers/{label}: the samplers ran "
+                                 f"different episodes")
+        out[label] = {"periods": res["periods"],
+                      "slots": cfg.n_services_total * simulator._k_cap(cfg),
+                      "engine_prefetches": cfg.n_services_total
+                      * simulator._k_cap(cfg) >= simulator.PREFETCH_MIN_SLOTS,
+                      "periods_per_s": {name: float(np.median(r))
+                                        for name, r in rates.items()},
+                      "runs": rates}
+    emit({"phase": "draw_samplers", **out})
+    return out
 
 
 def batch_pair() -> dict:
@@ -1575,6 +1912,9 @@ def main() -> int:
     clock["xlstm_parity"] = time.perf_counter()
 
     per_shape = {(n, k): kernel_phase(n, k, m) for n, k, m in KERNEL_SHAPES}
+    b3_parts()
+    b4_parts()
+    edge_matrix_phase()
     clock["allocation_kernels"] = time.perf_counter()
     attention = attention_phase()
     clock["attention_kernels"] = time.perf_counter()
@@ -1605,6 +1945,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"main paths never launched {missing}")
     clock["allocation_paths"] = time.perf_counter()
+    draw_samplers()        # after the paths: its episodes count in no path
+    clock["draw_samplers"] = time.perf_counter()
 
     auction_phase()
     clock["auction"] = time.perf_counter()

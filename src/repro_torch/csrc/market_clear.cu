@@ -10,111 +10,150 @@
 // Bound on this card: by the roofline count, operations (the service
 // tensors are 2NK floats, read once; every trip runs `newton_inner_iters`
 // bisection steps of about 5 float32 operations per (row, client)).  In
-// practice the grid-wide reduction on every trip, which the TPU kernel got
-// for free from its sequential grid, and the dependent bisection trips
-// (a divide and a warp butterfly each) set the time.
-// Design: a cooperative launch (grid no larger than the co-resident block
-// count, rows strided over all warps).  Each trip every block writes one
-// (demand, slope) partial to a double-buffered global scratch and the grid
-// synchronizes once; then warp 0 of every block sums all partials in the
-// same fixed order and shares the total through shared memory, and every
-// thread applies the identical dual update, so lam is bitwise the same in
-// every block and from run to run with no broadcast across blocks.  Blocks
-// are 512 threads and only one warp per block reads the partials: in a
-// first version with 256-thread blocks every warp read them, all warps of
-// the card hitting the same few L2 lines after every barrier, and the
-// kernel took about 1.5 times as long (PERF.md).  Double buffering makes one
-// grid barrier per trip enough: a block can only overwrite a buffer after
-// every block passed the next barrier, i.e. after every block has read it.
-
-#include <cooperative_groups.h>
+// practice the dependent bisection steps (divides and a butterfly each)
+// and the grid-wide reduction on every trip, which the TPU kernel got for
+// free from its sequential grid, set the time.
+//
+// Design (from the parts measured in PERF.md):
+// - Lane groups (rows.cuh): L lanes own a row, R clients a lane, so a warp
+//   bisects 32 / L rows at once with a log2 L butterfly.
+// - Zero lanes: every divide goes through div0, which keeps the padded
+//   clients' and inactive rows' 0 / d off the IEEE divide's slow path (it
+//   cost a third of the first version's time), and a warp with no active row skips
+//   its bisections.
+// - Cross-block reduction by mailboxes: a cooperative launch (every block
+//   co-resident, at most one block per SM).  Each reduction, every block
+//   folds its warps in order and posts its (x, y) partial to its slot,
+//   then a release store of the reduction's tag; warp 0 of every block
+//   polls every slot's tag with acquire loads and folds the partials in
+//   block order, so lam is bitwise the same in every block and from run
+//   to run, with no grid barrier and no broadcast.  Tags grow from launch
+//   to launch (the wrapper hands each launch its first tag), so a slot
+//   never shows a stale match.  Slots are double-buffered by the
+//   reduction's parity: a block writes reduction r + 2 to the slot of r
+//   only after it read every block's r + 1 partial, which each block
+//   posts only after it read every r partial; so no slot is overwritten
+//   before every block has read it, and one buffer pair is enough.
 
 #include "rows.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace repro {
 
-constexpr int kClearBlock = 512;                  // 16 warps, one row each
+constexpr int kClearBlock = 512;                  // 16 warps
 constexpr int kClearWarps = kClearBlock / kWarp;
+constexpr int kSlots = 8;        // mailbox slots a lane polls: grid <= 256
 
-// Block-level fold of a warp-uniform pair into this block's slot of `part`.
-__device__ __forceinline__ void block_partial(float x, float y, bool use_max,
-                                              float* part, float* red) {
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The grid-wide fold of one warp-uniform pair (x summed or maxed, y
+// summed): warps in order within the block, then blocks in order through
+// the mailboxes; returns the same bits in every thread of every block.
+// Reduction `tag` uses the buffer of its parity since `first_tag` (cap
+// slots of `part` and `tags` each).
+__device__ __forceinline__ float2 grid_fold(float x, float y, bool use_max,
+                                            float2* part, unsigned* tags,
+                                            int cap, unsigned first_tag,
+                                            unsigned tag, float2* red,
+                                            float2* bcast) {
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  if (lane == 0) {
-    red[warp] = x;
-    red[kClearWarps + warp] = y;
-  }
+  const int buf = (tag - first_tag) & 1;
+  part += buf * cap;
+  tags += buf * cap;
+  if (lane == 0) red[warp] = make_float2(x, y);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float sx = red[0], sy = red[kClearWarps];
-    for (int w = 1; w < kClearWarps; ++w) {
-      sx = use_max ? fmaxf(sx, red[w]) : sx + red[w];
-      sy += red[kClearWarps + w];
+  if (warp == 0) {
+    const float2 v = lane < kClearWarps ? red[lane] : make_float2(0.f, 0.f);
+    const float bx = use_max ? warp_max(v.x) : warp_sum(v.x);
+    const float by = warp_sum(v.y);
+    if (lane == 0) {
+      part[blockIdx.x] = make_float2(bx, by);
+      store_release(tags + blockIdx.x, tag);
     }
-    part[2 * blockIdx.x] = sx;
-    part[2 * blockIdx.x + 1] = sy;
-  }
-  __syncthreads();  // `red` is reused by the next phase
-}
-
-// Fixed-order fold of every block's partial by warp 0, shared with the
-// block through `bcast`.  __ldcg reads through L2: the partials were written
-// by other SMs.  The next write to `bcast` comes after the next
-// block_partial's __syncthreads, so every thread has read it by then.
-__device__ __forceinline__ float2 grid_total(const float* part, bool use_max,
-                                             float* bcast) {
-  if (threadIdx.x < kWarp) {
+    // Lane l waits for slots l, l + 32, ...: one pass polls them all
+    // (independent loads, one round trip), until every tag is there.
+    bool seen[kSlots];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j)
+      seen[j] = lane + kWarp * j >= (int)gridDim.x;
+    bool all;
+    do {
+      unsigned got[kSlots];
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j)
+        got[j] = seen[j] ? tag : load_acquire(tags + lane + kWarp * j);
+      all = true;
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        seen[j] = got[j] == tag;
+        all = all && seen[j];
+      }
+    } while (!all);
     float sx = 0.f, sy = 0.f;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < (int)gridDim.x; i += kWarp) {
-      const float x = __ldcg(part + 2 * i);
-      sx = use_max ? fmaxf(sx, x) : sx + x;
-      sy += __ldcg(part + 2 * i + 1);
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      if (lane + kWarp * j < (int)gridDim.x) {
+        const float2 p = __ldcg(part + lane + kWarp * j);
+        sx = use_max ? fmaxf(sx, p.x) : sx + p.x;
+        sy += p.y;
+      }
     }
+    __syncwarp();
     sx = use_max ? warp_max(sx) : warp_sum(sx);
     sy = warp_sum(sy);
-    if (threadIdx.x == 0) {
-      bcast[0] = sx;
-      bcast[1] = sy;
-    }
+    if (lane == 0) *bcast = make_float2(sx, sy);
   }
+  // The next write to `red` and `bcast` comes after the next fold's first
+  // barrier, which every thread reaches only after reading these.
   __syncthreads();
-  return make_float2(bcast[0], bcast[1]);
+  return *bcast;
 }
 
-template <int R>
+template <int L, int R>
 __global__ void __launch_bounds__(kClearBlock)
 market_clear_kernel(const float* __restrict__ alpha,
                     const float* __restrict__ tcomp, float b_total,
                     const float* __restrict__ lam_prev_p,
                     float* __restrict__ b_out, float* __restrict__ f_out,
-                    float* __restrict__ lam_out, float* __restrict__ scratch,
-                    int n, int k, int iters, int inner_iters,
-                    int newton_inner_iters) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float red[2 * kClearWarps];
-  __shared__ float bcast[2];
+                    float* __restrict__ lam_out, float2* part,
+                    unsigned* tags, int cap, unsigned first_tag, int n, int k,
+                    int iters, int inner_iters, int newton_inner_iters) {
+  constexpr int G = kWarp / L;                    // rows per warp
+  __shared__ float2 red[kClearWarps];
+  __shared__ float2 bcast;
   const int lane = threadIdx.x % kWarp;
-  const int first_row = blockIdx.x * kClearWarps + threadIdx.x / kWarp;
-  const int row_stride = gridDim.x * kClearWarps;
-  int phase = 0;
-  auto buffer = [&]() { return scratch + (phase & 1) * 2 * gridDim.x; };
+  const int sub = lane % L;
+  // Warps are numbered block-minor, so the rows spread over every block.
+  const int wid = (threadIdx.x / kWarp) * gridDim.x + blockIdx.x;
+  const int first = wid * G;                      // the warp's first row
+  const int stride = gridDim.x * kClearWarps * G;
+  const int grp = lane / L;
+  unsigned tag = first_tag;  // of the next reduction
 
   float a[R], tc[R], asum, tcmax;
 
   // --- bracket top: lam_hi0 = max_n p_max --------------------------------
   float pm = 0.f;
-  for (int row = first_row; row < n; row += row_stride) {
-    load_row<R>(alpha, tcomp, row, k, lane, a, tc, asum, tcmax);
+  for (int base = first; base < n; base += stride) {
+    const int row = base + grp;
+    load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
+                         tcmax);
     pm = fmaxf(pm, asum > 0.f ? 1.f / fmaxf(asum, kTiny) : 0.f);
   }
-  block_partial(pm, 0.f, true, buffer(), red);
-  grid.sync();
-  const float lam_hi0 = grid_total(buffer(), true, bcast).x;
-  ++phase;
+  const float lam_hi0 = grid_fold(groups_max<L>(pm), 0.f, true, part, tags,
+                                  cap, first_tag, tag++, red, &bcast).x;
 
   // --- warm seed (identical to solve_lambda_newton_warm) -----------------
   const float lam_prev = *lam_prev_p;
@@ -125,17 +164,18 @@ market_clear_kernel(const float* __restrict__ alpha,
   // --- the fixed-trip safeguarded-Newton loop ----------------------------
   for (int it = 0; it < iters; ++it) {
     float d = 0.f, s = 0.f;
-    for (int row = first_row; row < n; row += row_stride) {
-      load_row<R>(alpha, tcomp, row, k, lane, a, tc, asum, tcmax);
-      const float2 bs =
-          demand_slope_row<R>(a, tc, asum, tcmax, lam, newton_inner_iters);
+    for (int base = first; base < n; base += stride) {
+      const int row = base + grp;
+      load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
+                           tcmax);
+      const float2 bs = demand_slope_group<L, R>(a, tc, asum, tcmax, lam,
+                                                 newton_inner_iters);
       d += bs.x;
       s += bs.y;
     }
-    block_partial(d, s, false, buffer(), red);
-    grid.sync();
-    const float2 tot = grid_total(buffer(), false, bcast);
-    ++phase;
+    const float2 tot =
+        grid_fold(groups_sum<L>(d), groups_sum<L>(s), false, part, tags, cap,
+                  first_tag, tag++, red, &bcast);
     const float resid = tot.x - b_total;
     if (resid > 0.f) lo = lam; else hi = lam;  // demand too high: raise price
     const float step = resid / (fabsf(tot.y) > kTiny ? tot.y : -kTiny);
@@ -147,24 +187,29 @@ market_clear_kernel(const float* __restrict__ alpha,
 
   // --- final demand at the full inner trip count + aggregate -------------
   float total = 0.f;
-  for (int row = first_row; row < n; row += row_stride) {
-    load_row<R>(alpha, tcomp, row, k, lane, a, tc, asum, tcmax);
+  for (int base = first; base < n; base += stride) {
+    const int row = base + grp;
+    load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
+                         tcmax);
     const float b =
-        demand_slope_row<R>(a, tc, asum, tcmax, lam, inner_iters).x;
-    if (lane == 0) b_out[row] = b;
+        demand_slope_group<L, R>(a, tc, asum, tcmax, lam, inner_iters).x;
+    if (sub == 0 && row < n) b_out[row] = b;
     total += b;
   }
-  block_partial(total, 0.f, false, buffer(), red);
-  grid.sync();
-  const float total_b = grid_total(buffer(), false, bcast).x;
+  const float total_b = grid_fold(groups_sum<L>(total), 0.f, false, part, tags,
+                                 cap, first_tag, tag++, red, &bcast).x;
   const float scale = b_total / fmaxf(total_b, kTiny);
 
   // --- project onto sum b = B, then Eq. 7 round time -> f ----------------
-  for (int row = first_row; row < n; row += row_stride) {
-    load_row<R>(alpha, tcomp, row, k, lane, a, tc, asum, tcmax);
-    const float b = __ldcg(b_out + row) * scale;
-    const float f = freq_row<R>(a, tc, asum, tcmax, b, inner_iters);
-    if (lane == 0) {
+  // Each row's b was written above by lane 0 of the group that reads it
+  // here, before the fold's block barrier.
+  for (int base = first; base < n; base += stride) {
+    const int row = base + grp;
+    load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
+                         tcmax);
+    const float b = row < n ? b_out[row] * scale : 0.f;
+    const float f = freq_group<L, R>(a, tc, asum, tcmax, b, inner_iters);
+    if (sub == 0 && row < n) {
       b_out[row] = b;
       f_out[row] = f;
     }
@@ -172,29 +217,24 @@ market_clear_kernel(const float* __restrict__ alpha,
   if (blockIdx.x == 0 && threadIdx.x == 0) *lam_out = lam;
 }
 
-template <int R>
-const void* kernel_ptr() {
-  return reinterpret_cast<const void*>(&market_clear_kernel<R>);
-}
-
-const void* kernel_for(int k) {
-  switch (regs_per_lane(k)) {
-    case 1: return kernel_ptr<1>();
-    case 2: return kernel_ptr<2>();
-    case 4: return kernel_ptr<4>();
-    case 8: return kernel_ptr<8>();
-    case 16: return kernel_ptr<16>();
-    case 32: return kernel_ptr<32>();
-    default: return nullptr;
-  }
+// The (L, R) kernel for K clients (lane_group), or nullptr.
+const void* kernel_for(int k, int& lanes, int& regs) {
+  if (!lane_group(k, lanes, regs)) return nullptr;
+#define REPRO_CASE(L, R) \
+  if (lanes == L && regs == R) \
+    return reinterpret_cast<const void*>(&market_clear_kernel<L, R>);
+  REPRO_LANE_GROUPS(REPRO_CASE)
+#undef REPRO_CASE
+  return nullptr;
 }
 
 }  // namespace repro
 
-// Largest co-resident grid for K clients on the current device (<= 0 on
-// error): the most blocks a cooperative launch may use.
-extern "C" int market_clear_max_grid(int k) {
-  const void* fn = repro::kernel_for(k);
+// Largest co-resident grid of the kernel for K clients on the current
+// device (<= 0 on error): the most blocks a cooperative launch may use;
+// `lanes` and `regs` get its lane group, which the grid's sizing needs.
+extern "C" int market_clear_max_grid(int k, int* lanes, int* regs) {
+  const void* fn = repro::kernel_for(k, *lanes, *regs);
   if (fn == nullptr) return -1;
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -2;
@@ -207,22 +247,29 @@ extern "C" int market_clear_max_grid(int k) {
   return per_sm * sms;
 }
 
-// C entry, loaded with ctypes.  `max_grid` is market_clear_max_grid(k) on
-// this device, queried once by the caller, and `scratch` holds 4 * max_grid
-// floats.  Returns the launch's CUDA error code.
+// C entry, loaded with ctypes.  `grid` <= market_clear_max_grid(k) and <=
+// `cap`; `part` holds 2 cap float2 and `tags` 2 cap unsigned, zeroed once
+// when allocated; the launch uses the tags first_tag .. first_tag + iters
+// + 2, which must exceed every tag an earlier launch left in them.
+// Returns the launch's CUDA error code.
 extern "C" int market_clear_launch(const float* alpha, const float* tcomp,
                                    float b_total, const float* lam_prev,
                                    float* b, float* f, float* lam,
-                                   float* scratch, int n, int k, int iters,
-                                   int inner_iters, int newton_inner_iters,
-                                   int max_grid, void* stream) {
+                                   void* part, unsigned* tags, int cap,
+                                   unsigned first_tag, int n, int k,
+                                   int iters, int inner_iters,
+                                   int newton_inner_iters, int grid,
+                                   void* stream) {
   using namespace repro;
-  const void* fn = kernel_for(k);
-  if (fn == nullptr || max_grid <= 0 || n < 1) return cudaErrorInvalidValue;
-  int grid = (n + kClearWarps - 1) / kClearWarps;
-  if (grid > max_grid) grid = max_grid;
-  void* args[] = {&alpha, &tcomp, &b_total, &lam_prev, &b, &f, &lam, &scratch,
-                  &n, &k, &iters, &inner_iters, &newton_inner_iters};
+  int lanes = 0, regs = 0;
+  const void* fn = kernel_for(k, lanes, regs);
+  if (fn == nullptr || grid < 1 || grid > cap || grid > kSlots * kWarp ||
+      n < 1)
+    return cudaErrorInvalidValue;
+  float2* part2 = static_cast<float2*>(part);
+  void* args[] = {&alpha, &tcomp, &b_total, &lam_prev, &b, &f, &lam,
+                  &part2, &tags, &cap, &first_tag, &n, &k, &iters,
+                  &inner_iters, &newton_inner_iters};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kClearBlock), args, 0,
       static_cast<cudaStream_t>(stream));

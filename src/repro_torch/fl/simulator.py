@@ -26,6 +26,9 @@ package's draws through this engine.
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -38,8 +41,13 @@ from repro_torch.core.types import (ServiceSet, default_device, mask_clients,
 from repro_torch.scenarios import GeneratorSource, generator
 
 # Salt of the episode-static draws (arrivals + client counts), above every
-# period number and the scenario salts, so no two draws share a seed.
+# period number and the scenario salts, so no two draws share a seed; the
+# client counts add their own word.  Without it they drew from
+# generator(seed + 7, _DRAW_SALT), which is the arrival source's "gaps"
+# stream (words zero-padded, see scenarios.generator): the counts and the
+# gaps came from one sequence of uniforms, correlated (ROADMAP C4).
 _DRAW_SALT = (1 << 30) + 3
+_COUNTS_SALT = (1 << 30) + 4
 
 _AGG_KEYS = ("freq_sum", "objective", "n_active", "n_clients")
 # The dtypes of the reference's stacked history.
@@ -115,11 +123,39 @@ def _static_draws(cfg: SimConfig, net: network.NetworkConfig
     arrivals = draw(GeneratorSource("cpu", cfg.seed + 7, _DRAW_SALT),
                     cfg.n_services_total, cfg.p_arrive)
     std = np.sqrt(max(cfg.var_clients, 1e-9))
-    eps = torch.randn((cfg.n_services_total,),
-                      generator=generator(cfg.seed + 7, _DRAW_SALT))
+    eps = torch.randn((cfg.n_services_total,), generator=generator(
+        cfg.seed + 7, _DRAW_SALT, _COUNTS_SALT))
     counts = torch.clamp(torch.round(cfg.mean_clients + std * eps),
                          net.k_min, _k_cap(cfg))
     return arrivals.numpy().astype(np.int64), counts.numpy().astype(np.int64)
+
+
+def _raw_draws(cfg: SimConfig, net: network.NetworkConfig, counts
+               ) -> Callable[[int], network.ServiceDraws]:
+    """``period`` -> the period's raw service draws on the CPU, from a
+    generator seeded from (cfg.seed, period) alone."""
+    counts_t = torch.as_tensor(np.array(counts), dtype=torch.int32)
+    k_max = _k_cap(cfg)
+
+    def draw(period: int) -> network.ServiceDraws:
+        return network.sample_draws(generator(cfg.seed + 7, period),
+                                    cfg.n_services_total, net, k_max=k_max,
+                                    client_counts=counts_t)
+
+    return draw
+
+
+def _placed(raw: network.ServiceDraws, cfg: SimConfig, period: int,
+            device) -> PeriodDraws:
+    """A period's CPU draws moved to ``device``, with the scenario draws of
+    (cfg.seed, period, stream) and, at period 0, the initial states' of
+    (cfg.seed, stream)."""
+    raw = network.ServiceDraws(*(x.to(device) if torch.is_tensor(x) else x
+                                 for x in raw))
+    words = (cfg.seed + 7,)
+    return PeriodDraws(raw, GeneratorSource(device, *words, period),
+                       GeneratorSource(device, *words) if period == 0
+                       else None)
 
 
 def default_sampler(cfg: SimConfig, net: network.NetworkConfig, counts,
@@ -128,22 +164,69 @@ def default_sampler(cfg: SimConfig, net: network.NetworkConfig, counts,
     a generator seeded from (cfg.seed, period), the scenario draws from
     (cfg.seed, period, stream), the initial states' from (cfg.seed,
     stream).  Every draw is made on the CPU and then moved to ``device``,
-    so one seed runs the same episode on every device."""
-    counts_t = torch.as_tensor(np.array(counts), dtype=torch.int32)
-    k_max = _k_cap(cfg)
-    words = (cfg.seed + 7,)
+    so one seed runs the same episode on every device.  Each call draws
+    its period inline; an engine given no ``sampler`` draws the same
+    periods ahead where they are large (``_PrefetchingSampler``)."""
+    draw = _raw_draws(cfg, net, counts)
+    return lambda period: _placed(draw(period), cfg, period, device)
 
-    def sampler(period: int) -> PeriodDraws:
-        raw = network.sample_draws(generator(*words, period),
-                                   cfg.n_services_total, net, k_max=k_max,
-                                   client_counts=counts_t)
-        raw = network.ServiceDraws(*(x.to(device) if torch.is_tensor(x)
-                                     else x for x in raw))
-        return PeriodDraws(raw, GeneratorSource(device, *words, period),
-                           GeneratorSource(device, *words) if period == 0
-                           else None)
 
-    return sampler
+# Given no sampler, the engine draws the next PREFETCH_DEPTH periods'
+# services on PREFETCH_WORKERS host threads while the device runs the
+# current one, once a period holds PREFETCH_MIN_SLOTS (service, client)
+# slots or more.  Measured on an H100 machine's host (PERF.md): a market
+# period (8192 x 45 slots, 1.1 M floats) takes 9-18 ms of one thread to
+# draw, a warm coop period 2-4 ms of the engine, so several periods are
+# drawn at once (one generator is serial).  But the threads also slow the
+# engine's own thread, by ~1 ms a period at the paper's setting (10 x 45
+# slots, ~0.1 ms of draws), likely in handing the interpreter lock back
+# and forth: there the engine draws inline.
+PREFETCH_WORKERS = max(1, min(6, (os.cpu_count() or 1) - 2))
+PREFETCH_DEPTH = 2 * PREFETCH_WORKERS
+PREFETCH_MIN_SLOTS = 1 << 15
+
+
+class _PrefetchingSampler:
+    """``default_sampler``'s draws, bit for bit, with the raw service draws
+    made ahead on host threads: every period draws from its own generator,
+    so the order in which the threads run changes nothing.  The copy to
+    the device stays on the calling thread, on its current stream.  (The
+    threads do not pin the draws: at market scale the episode is bound by
+    the draws' throughput, where a non-blocking copy gained nothing, and
+    the process's first pinned allocation took 0.25 s or more; PERF.md.)
+    ``waits`` holds the seconds each call waited for its period's draws,
+    in call order.  ``close`` cancels the draws still pending and joins
+    the threads; the engine calls it however the episode ends."""
+
+    def __init__(self, cfg: SimConfig, net: network.NetworkConfig, counts,
+                 device):
+        self._draw = _raw_draws(cfg, net, counts)
+        self._cfg, self._device = cfg, device
+        self._last = cfg.max_periods - 1
+        self._pool = ThreadPoolExecutor(PREFETCH_WORKERS,
+                                        thread_name_prefix="repro-draws")
+        self._pending: dict[int, Future] = {}
+        self.waits: list[float] = []
+
+    def __call__(self, period: int) -> PeriodDraws:
+        for ahead in range(period, min(period + PREFETCH_DEPTH,
+                                       self._last) + 1):
+            if ahead not in self._pending:
+                self._pending[ahead] = self._pool.submit(self._draw, ahead)
+        t0 = time.perf_counter()
+        try:
+            raw = self._pending.pop(period).result()
+        except Exception as exc:
+            raise RuntimeError(f"drawing period {period}'s services failed: "
+                               f"{exc!r}") from exc
+        self.waits.append(time.perf_counter() - t0)
+        return _placed(raw, self._cfg, period, self._device)
+
+    def close(self) -> None:
+        for fut in self._pending.values():
+            fut.cancel()
+        self._pending.clear()
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +323,6 @@ def _run_episode(cfg: SimConfig, net: network.NetworkConfig, arrivals,
             raise ValueError(
                 f"avail must have shape (max_periods, n_services_total, "
                 f"k_max) = {want}, got {tuple(avail.shape)}")
-    if sampler is None:
-        sampler = default_sampler(cfg, net, counts, device)
-
     pol = policy_mod.get_stateful_policy(
         cfg.policy, warm_start=cfg.warm_start, n_bids=cfg.n_bids,
         alpha_fair=cfg.alpha_fair, intra_backend=cfg.intra_backend)
@@ -255,29 +335,42 @@ def _run_episode(cfg: SimConfig, net: network.NetworkConfig, arrivals,
     rounds_done = torch.zeros((n,), dtype=torch.int32, device=device)
     duration = torch.zeros((n,), dtype=torch.int32, device=device)
     history = []
-    for period in range(cfg.max_periods):
-        draws = _check_draws(sampler(period), period, n, k_max, device,
-                             chan.rebuilds, cfg.channel_process)
-        if draws.source is None:
-            draws = draws._replace(
-                source=GeneratorSource(device, cfg.seed + 7, period))
-        if period == 0:
-            init = draws.init or GeneratorSource(device, cfg.seed + 7)
-            chan_state = chan.init(init, n, k_max)
-            churn_state = churn.init(init, n, k_max)
-        (rounds_done, duration, chan_state, churn_state, pol_state, stats,
-         extras) = _period_step(
-            rounds_done, duration, chan_state, churn_state, pol_state, period,
-            arrivals_t, draws, None if avail is None else avail[period],
-            policy_fn=pol.step, chan_step=chan.step, churn_step=churn.step,
-            chan_rebuilds=chan.rebuilds, net=net,
-            rounds_required=cfg.rounds_required)
-        if cfg.collect_alloc:
-            stats.update(b=extras["b"], f=extras["f"],
-                         active=extras["active"], rounds=extras["rounds"])
-        history.append(stats)
-        if bool(stats["all_done"]):
-            break
+    # No sampler given: the engine's own, which draws large periods ahead
+    # on host threads and is closed however the episode ends.
+    own = None
+    if sampler is None and n * k_max >= PREFETCH_MIN_SLOTS:
+        sampler = own = _PrefetchingSampler(cfg, net, counts, device)
+    elif sampler is None:
+        sampler = default_sampler(cfg, net, counts, device)
+    try:
+        for period in range(cfg.max_periods):
+            draws = _check_draws(sampler(period), period, n, k_max, device,
+                                 chan.rebuilds, cfg.channel_process)
+            if draws.source is None:
+                draws = draws._replace(
+                    source=GeneratorSource(device, cfg.seed + 7, period))
+            if period == 0:
+                init = draws.init or GeneratorSource(device, cfg.seed + 7)
+                chan_state = chan.init(init, n, k_max)
+                churn_state = churn.init(init, n, k_max)
+            (rounds_done, duration, chan_state, churn_state, pol_state,
+             stats, extras) = _period_step(
+                rounds_done, duration, chan_state, churn_state, pol_state,
+                period, arrivals_t, draws,
+                None if avail is None else avail[period],
+                policy_fn=pol.step, chan_step=chan.step,
+                churn_step=churn.step, chan_rebuilds=chan.rebuilds, net=net,
+                rounds_required=cfg.rounds_required)
+            if cfg.collect_alloc:
+                stats.update(b=extras["b"], f=extras["f"],
+                             active=extras["active"],
+                             rounds=extras["rounds"])
+            history.append(stats)
+            if bool(stats["all_done"]):
+                break
+    finally:
+        if own is not None:
+            own.close()
     stacked = {k: torch.stack([h[k] for h in history]).cpu().numpy()
                for k in history[0]}
     return _Episode(rounds_done.cpu().numpy(), duration.cpu().numpy(),

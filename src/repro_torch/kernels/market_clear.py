@@ -7,8 +7,11 @@ seed, ``iters`` trips each reducing sum demand and sum slope over every row
 (bracket fold, Newton step, midpoint fallback), final demand at
 ``inner_iters``, projection onto sum b = B, and the Eq. 7 frequency of every
 row.  The CUDA kernel is ``csrc/market_clear.cu``, a cooperative launch
-with one grid-wide barrier per trip; ``market_clear_plain`` repeats its
-arithmetic in PyTorch ops.
+that folds every trip's sums across blocks through mailboxes;
+``market_clear_plain`` repeats its arithmetic in PyTorch ops.  Both
+kernels give each row (B3) or (row, price) pair (B4) a group of L lanes
+with R clients a lane, (L, R) chosen from K in C (``csrc/rows.cuh``
+``lane_group``).
 
 ``mbdf_demand`` evaluates the modified bandwidth demand d_n(p_m) of every
 service row at every price of its (ascending) bid grid: per (row, price) a
@@ -84,25 +87,59 @@ def market_clear_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
 def _lib():
     lib = _build.library("market_clear")
     fn = lib.market_clear_launch
-    fn.argtypes = ([_c_void_p] * 2 + [_c_float] + [_c_void_p] * 5
-                   + [_c_int] * 6 + [_c_void_p])
+    fn.argtypes = ([_c_void_p] * 2 + [_c_float] + [_c_void_p] * 6
+                   + [_c_int, ctypes.c_uint] + [_c_int] * 6 + [_c_void_p])
     fn.restype = _c_int
     grid = lib.market_clear_max_grid
-    grid.argtypes = [_c_int]
+    grid.argtypes = [_c_int] + [ctypes.POINTER(_c_int)] * 2
     grid.restype = _c_int
     return fn, grid
 
 
 @functools.cache
-def max_grid(k: int, device_index: int) -> int:
-    """The most co-resident blocks of the kernel for K clients on one
-    device: the cooperative launch's largest grid.  Queried once per
-    (K, device), not on every launch."""
+def grid_limits(k: int, device_index: int) -> tuple[int, int, int, int]:
+    """(most co-resident blocks of the kernel for K clients, SMs, L, R) on
+    one device: the cooperative launch's largest grid, the one-block-per-SM
+    cap, and the kernel's lane group.  Queried once per (K, device), not on
+    every launch."""
+    lanes, regs = _c_int(), _c_int()
     with torch.cuda.device(device_index):
-        grid = _lib()[1](k)
+        grid = _lib()[1](k, ctypes.byref(lanes), ctypes.byref(regs))
     if grid <= 0:
         raise RuntimeError(f"market_clear occupancy query failed ({grid})")
-    return grid
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return grid, sms, lanes.value, regs.value
+
+
+class _Mailboxes:
+    """Per device: the kernel's mailbox slots (2 x cap (demand, slope)
+    partials and 2 x cap tags, zeroed once) and the next launch's first
+    tag.  Tags only grow, so no slot ever holds a tag a later launch waits
+    for; on wrap-around the tags are zeroed again.  One stream at a time,
+    like decode_attention's counters, and no graph capture: a replayed
+    launch would reuse its tags, which its first run left in the slots."""
+
+    def __init__(self):
+        self.slots: dict[int, tuple[torch.Tensor, int]] = {}
+        self.next_tag: dict[int, int] = {}
+
+    def take(self, device: torch.device, cap: int, folds: int):
+        idx = device.index
+        buf, have = self.slots.get(idx, (None, 0))
+        if have < cap:
+            # 2 cap float2 partials, then 2 cap uint32 tags
+            buf = torch.zeros((6 * cap,), dtype=torch.int32, device=device)
+            self.slots[idx] = (buf, cap)
+            have = cap
+        tag = self.next_tag.get(idx, 1)
+        if tag + folds >= 1 << 32:
+            buf[4 * have:].zero_()
+            tag = 1
+        self.next_tag[idx] = tag + folds
+        return buf.data_ptr(), buf.data_ptr() + 16 * have, have, tag
+
+
+_MAILBOXES = _Mailboxes()
 
 
 def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
@@ -110,20 +147,28 @@ def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
                       iters: int = 6, inner_iters: int = 48,
                       newton_inner_iters: int = 24
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One cooperative launch on the current stream.  ``lam_prev`` is a 0-d
-    float32 tensor on the same device; inputs must already be validated
+    """One cooperative launch on the current stream, which must not be
+    capturing a graph (``_Mailboxes``).  ``lam_prev`` is a 0-d float32
+    tensor on the same device; inputs must already be validated
     (``ops.market_clear`` does it)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("market_clear: its mailbox tags are taken on the "
+                           "host at each launch, so it cannot be captured "
+                           "in a CUDA graph")
     n, k = alpha.shape
     dev = alpha.device
-    grid = max_grid(k, dev.index)
-    # One allocation: b, f, lam, then two double-buffered (demand, slope)
-    # partials per co-resident block of scratch.
-    buf = torch.empty((2 * n + 1 + 4 * grid,), dtype=torch.float32, device=dev)
-    b, f, lam = buf[:n], buf[n:2 * n], buf[2 * n]
+    most, sms, lanes, _ = grid_limits(k, dev.index)
+    # at most one block per SM (and 256, the slots a lane polls), and at
+    # least 4 busy warps in each
+    warps = -(-n * lanes // 32)
+    grid = max(1, min(most, sms, 256, -(-warps // 4)))
+    part, tags, cap, tag = _MAILBOXES.take(dev, sms, iters + 2)
+    out = torch.empty((2 * n + 1,), dtype=torch.float32, device=dev)
+    b, f, lam = out[:n], out[n:2 * n], out[2 * n]
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = _lib()[0](alpha.data_ptr(), t_comp.data_ptr(), float(b_total),
                        lam_prev.data_ptr(), b.data_ptr(), f.data_ptr(),
-                       lam.data_ptr(), buf[2 * n + 1:].data_ptr(), n, k, iters,
+                       lam.data_ptr(), part, tags, cap, tag, n, k, iters,
                        inner_iters, newton_inner_iters, grid, stream)
     _build.check(status, "market_clear")
     return b, f, lam
@@ -169,8 +214,8 @@ def mbdf_demand_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
 @functools.cache
 def _mbdf_lib():
     fn = _build.library("mbdf_demand").mbdf_demand_launch
-    fn.argtypes = ([_c_void_p] * 4 + [_c_int] * 3 + [_c_float] * 2 + [_c_int]
-                   + [_c_void_p])
+    fn.argtypes = ([_c_void_p] * 4 + [_c_int] * 3 + [_c_float] * 2
+                   + [_c_int, _c_void_p])
     fn.restype = _c_int
     return fn
 

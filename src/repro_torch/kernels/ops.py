@@ -112,7 +112,10 @@ def market_clear(alpha: torch.Tensor, t_comp: torch.Tensor, b_total: float,
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole safeguarded-Newton market clear -> (b (N,), f (N,), lam ()).
     ``lam_prev`` is a 0-d float32 tensor on the tensors' device (<= 0 seeds
-    cold)."""
+    cold).  On the card the kernel folds across blocks through mailboxes
+    whose tags the host hands out at each launch: one stream at a time, and
+    no CUDA-graph capture (it raises); a graph would need the tags from a
+    counter on the device."""
     if lam_prev.ndim != 0:
         raise ValueError("market_clear: lam_prev must be a 0-d tensor")
     kwargs = dict(iters=iters, inner_iters=inner_iters,

@@ -58,7 +58,10 @@ def generator(*words: int) -> torch.Generator:
     """A CPU generator seeded from a hash of ``words``.  Every seeded draw
     of the port is made on the CPU and then moved to its device: the CPU's
     generator and a card's give different streams from one seed, so a
-    generator on the card would make an episode depend on where it runs."""
+    generator on the card would make an episode depend on where it runs.
+    SeedSequence pads ``words`` with zeros to four, so (a, b) and (a, b,
+    0, 0) seed one stream: no two draws may differ only by trailing zero
+    words."""
     seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(seed))
 

@@ -176,6 +176,60 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, error):
 
 
 # ---------------------------------------------------------------------------
+# B3 and B4's lane groups and B3's mailbox tags, chosen on the host.
+# ---------------------------------------------------------------------------
+
+@needs_cuda
+def test_cuda_lane_group_covers_every_k():
+    """For every K the kernels take, the lane group the C code picks: L a
+    power of two in [8, 32], L R >= K with R <= 32, and no more lanes than
+    8 clients a lane need; (8, 4) at K = 32 and (8, 6) at 45."""
+    from repro_torch.kernels.market_clear import grid_limits
+
+    for k in range(1, ops.MAX_K + 1):
+        lanes, regs = grid_limits(k, 0)[2:]
+        assert lanes in (8, 16, 32) and regs <= 32, k
+        assert lanes * regs >= k, k
+        assert lanes == 8 or lanes * 4 < k <= 8 * lanes or lanes == 32, k
+    assert grid_limits(32, 0)[2:] == (8, 4)
+    assert grid_limits(45, 0)[2:] == (8, 6)
+
+
+def test_market_clear_refuses_graph_capture(monkeypatch):
+    """The mailbox tags are handed out on the host at each launch, so a
+    captured launch would replay stale tags: the launcher raises first."""
+    from repro_torch.kernels import market_clear as mc
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    a = t = torch.ones((4, 3))
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        mc.market_clear_cuda(a, t, B, torch.tensor(0.1))
+
+
+def test_mailbox_tags_only_grow():
+    """Each launch gets tags above every earlier launch's, from one
+    zeroed slot buffer per device; on wrap-around the tags are zeroed."""
+    from repro_torch.kernels.market_clear import _Mailboxes
+
+    boxes = _Mailboxes()
+    cpu = torch.device("cpu")
+    part, tags, cap, first = boxes.take(cpu, 132, 8)
+    assert (cap, first) == (132, 1) and tags - part == 16 * 132
+    buf = boxes.slots[None][0]
+    assert buf.numel() * 4 == 24 * 132 and not bool(buf.any())
+    assert boxes.take(cpu, 132, 14)[3] == 9
+    assert boxes.take(cpu, 100, 8)[3] == 23
+    assert boxes.slots[None][0] is buf          # no new buffer
+    buf[4 * 132:] = 7
+    boxes.next_tag[None] = (1 << 32) - 5
+    assert boxes.take(cpu, 132, 8)[3] == 1
+    assert not bool(buf[4 * 132:].any())
+    assert boxes.take(cpu, 264, 8)[3] == 9
+    assert boxes.slots[None][0].numel() == 6 * 264
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels vs their plain versions (run on a card only).
 # ---------------------------------------------------------------------------
 
@@ -224,6 +278,61 @@ def test_cuda_mbdf_demand_matches_plain():
         got = ops.mbdf_demand(a, t, prices, alpha_fair)
         want = mbdf_demand_plain(a, t, prices, alpha_fair)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# The shape matrix of tests/test_tile_edges.py for B3 and B4 on the card:
+# every lane-group width, the ragged edges of N and K, an all-inactive
+# market and one with a single active row (chip_smoke.py's edge_matrix).
+CUDA_EDGE = ([(n, k, "ragged") for n in (1, 31, 8191)
+              for k in (1, 7, 31, 32, 33, 45, 64, 65, 128, 1024)]
+             + [(31, 45, "none"), (31, 45, "one")])
+
+
+def _cuda_edge_market(n, k, active):
+    rng = np.random.default_rng([n, k])
+    a = rng.uniform(0.01, 0.3, (n, k)).astype(np.float32)
+    t = rng.uniform(0.01, 0.06, (n, k)).astype(np.float32)
+    mask = np.arange(k)[None, :] < rng.integers(1, k + 1, (n, 1))
+    if active == "ragged":
+        mask[5::10] = False
+    else:
+        mask[:] = False
+        if active == "one":
+            mask[n // 2, : max(1, k // 2)] = True
+    return (torch.as_tensor(np.where(mask, a, 0.0)).cuda(),
+            torch.as_tensor(np.where(mask, t, 0.0)).cuda())
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,k,active", CUDA_EDGE)
+def test_cuda_market_clear_edges_match_plain(n, k, active):
+    a, t = _cuda_edge_market(n, k, active)
+    cold = market_clear_plain(a, t, B, torch.tensor(-1.0, device="cuda"),
+                              iters=12, newton_inner_iters=48)[2]
+    seed = (cold * 1.03).contiguous()
+    got = ops.market_clear(a, t, B, seed)
+    want = market_clear_plain(a, t, B, seed)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-5)
+    again = ops.market_clear(a, t, B, seed)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@needs_cuda
+@pytest.mark.parametrize("m", [1, 5, 8, 9])
+@pytest.mark.parametrize("n,k,active", CUDA_EDGE)
+def test_cuda_mbdf_demand_edges_match_plain(n, k, active, m):
+    a, t = _cuda_edge_market(n, k, active)
+    asum = a.sum(dim=1)
+    pmax = torch.where(asum > 0, 1.0 / torch.clamp(asum, min=1e-30), 0.0)
+    steps = torch.arange(1, m + 1, dtype=torch.float32, device="cuda")
+    prices = (1.15 * steps[None, :] * pmax[:, None] / (m + 1)).contiguous()
+    got = ops.mbdf_demand(a, t, prices, 0.5)
+    want = mbdf_demand_plain(a, t, prices, 0.5)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert bool((got >= 0).all()) and bool((got[:, 1:] <= got[:, :-1]).all())
+    assert bool((got[asum == 0] == 0).all())
 
 
 # ---------------------------------------------------------------------------
