@@ -47,8 +47,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    sLSTM), batch 2, prompt 1024, 8 greedy tokens in lockstep, as phase 6;
 3. every kernel against its plain PyTorch version on the card, at the
    market shape (N = 8192 services, K = 32 clients, first 10% inactive,
-   sample_services on a generator seeded 5, warm seed = cold price x 1.03)
-   and a ragged shape (N = 8191, K = 45); mbdf_demand on the prices of
+   sample_services on a generator seeded 5, warm seed = cold price x 1.03),
+   a ragged shape (N = 8191, K = 45) and the paper's ten services (N = 10,
+   K = 45: where B1's and B2's launches come from, so their kernels-line
+   times); B1 and B2 bitwise the same over 21 more calls and at every
+   speculation depth; mbdf_demand on the prices of
    uniform_truthful_bids (M = 5 at the market shape, M = 3 at the ragged
    one) for alpha_fair 0, 0.5 and 1, its demands >= 0, non-increasing
    along the price grid and 0 on inactive rows.  Per kernel: the largest
@@ -65,8 +68,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    over 3.35 TB/s, counting about 5 operations per valid (row, client,
    trip), 6 for mbdf_demand's per price); market_clear's outputs bitwise
    the same over 21 more calls (lam above all: every block folds the
-   same partials in the same order).  Then B3 and B4 in parts, through
-   their own launch arguments (b3_parts: no trips, 6 trips without
+   same partials in the same order).  Then B1-B4 in parts, through
+   their own launch arguments (b12_parts: B1 and B2 with 0 and their full
+   trips at 10 x 45, 8192 x 45 and both market shapes, on the market and
+   its full copy, the wrapper's time beside the kernel's, and each
+   speculation depth over N from 10 to 8192 at K = 45 with the depth the
+   launch picks; b3_parts: no trips, 6 trips without
    bisection, plus the 6 x 24 Newton steps, the full call, at both
    shapes and on a copy of each market with every row active and full,
    giving the cost of a trip, of a bisection step and of the zero lanes;
@@ -75,9 +82,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    checks and slow-path calls in the kernels' SASS (cuobjdump); and the
    edge matrix (edge_matrix: tests/test_tile_edges.py's shapes mirrored,
    N in {1, 31, 8191} x K in {1, 7, 31, 32, 33, 45, 64, 65, 128, 1024},
-   an all-inactive market and one with a single active row, B4 at M in
+   an all-inactive market and one with a single active row, B1 with a
+   b = 0 row, B2 on a price per row, B4 at M in
    {1, 5, 8, 9}), each kernel against its plain version within the
-   tolerances above, B4's demands >= 0, non-increasing and 0 on
+   tolerances above, B1 and B2 alike at every depth, B4's demands >= 0,
+   non-increasing and 0 on
    inactive rows; before it, the lane group the kernels pick for every
    K up to 1024 (L in 8, 16, 32 and K <= L R <= 32 L);
 4. the attention kernels (B5 flash_attention, B6 decode_attention)
@@ -143,7 +152,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
 9. the kernels line: per kernel, its launches on the paths of phases 2b,
-   5 and 7 (summed), its deviation, times and bound; B7's row lists its
+   5 and 7 (summed), its deviation, times and bound (B1 and B2 at 10 x
+   45, B3 and B4 at the market shape); B7's row lists its
    two bf16 kernels under "parts" (a launch count is a call of both).
 
 Tolerances are rtol and atol as in the CPU tests, but atol is never more
@@ -208,7 +218,11 @@ MLSTM_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}      # rtol = atol
 LOG = ROOT / "build" / "chip_smoke.jsonl"   # every emitted line
 MODEL_TOL = 1e-4          # rtol = atol of the float32 end-to-end parity
 # Sizes (the phases above).
-KERNEL_SHAPES = ((8192, 32, 5), (8191, 45, 3))   # (N, K, M of mbdf_demand)
+# (N, K, M of mbdf_demand): the market shape, a ragged one, and the paper's
+# ten services, where B1's and B2's launches come from (the kernels line).
+KERNEL_SHAPES = ((8192, 32, 5), (8191, 45, 3), (10, 45, 5))
+MAIN_PATH_SHAPE = (10, 45)   # B1 and B2 in the kernels line
+DEPTHS = (1, 2)              # B1 and B2's speculation depths, the same bits
 MARKET_N = 8192
 PAPER = {}                   # SimConfig overrides of the paper's setting
 AUCTION_N, RERUN_N = 8192, 256
@@ -517,6 +531,11 @@ def kernel_phase(n: int, k: int, m: int) -> dict:
             # the water-filling split of every row sums to its budget
             checks["split_sum"] = check_close(tag, got[1].sum(dim=1), b,
                                               "split_sum")
+        if name in ("bisect_alloc", "dual_demand"):
+            checks["bitwise_repeats"] = bitwise_repeats(tag, kern, got)
+            checks["depths_bitwise"] = depths_bitwise(tag, name, a, t, (
+                b if name == "bisect_alloc" else lam_prev), iters=(
+                48 if name == "bisect_alloc" else disba.WARM_INNER_ITERS))
         if name == "market_clear":
             checks["b_total"] = check_close(tag, got[0].sum(),
                                             torch.tensor(B_TOTAL), "b")
@@ -576,6 +595,26 @@ def bitwise_repeats(tag: str, kern, first, reps: int = 21) -> int:
     return reps
 
 
+def depths_bitwise(tag: str, name: str, a, t, x, iters: int) -> list:
+    """Raise unless B1 (``x`` the budgets) or B2 (``x`` the prices) gives
+    the bits of depth 1 at every depth of DEPTHS compiled for its K (depth
+    2 where K <= 64); returns those depths."""
+    from repro_torch.kernels.bisect_alloc import (bisect_alloc_cuda,
+                                                  bisect_alloc_plan)
+    from repro_torch.kernels.dual_demand import dual_demand_cuda
+
+    fn = bisect_alloc_cuda if name == "bisect_alloc" else dual_demand_cuda
+    depths = []
+    for j in DEPTHS:
+        with contextlib.suppress(ValueError):   # no kernel at this depth
+            depths.append(bisect_alloc_plan(*a.shape, j, device=DEVICE))
+    first = fn(a, t, x, iters, depth=depths[0])
+    for j in depths[1:]:
+        bitwise_repeats(f"{tag}/depth {j}",
+                        lambda: fn(a, t, x, iters, depth=j), first, reps=1)
+    return depths
+
+
 # The shape matrix of tests/test_tile_edges.py, mirrored for B3 and B4 on
 # the card: every lane-group width and the ragged edges of N and K.
 EDGE_K = (1, 7, 31, 32, 33, 45, 64, 65, 128, 1024)
@@ -607,15 +646,21 @@ def edge_market(n: int, k: int, active: str = "ragged"):
 
 
 def edge_matrix_phase() -> dict:
-    """B3 and B4 against their plain versions on the card over the edge
+    """B1-B4 against their plain versions on the card over the edge
     matrix, after the lane group chosen for every K up to ops.MAX_K is checked
     (L in 8, 16, 32, K <= L R <= 32 L): N x K, an all-inactive and a one-active-row market, and B4 at
     every M of EDGE_M, on price grids 1.15 m p_max / (M + 1): the top
     prices pass p_max (the opt-out), and none lies within 2% of it, where
     the demand jumps to 0 and an ulp of q decides the side.  B3 is seeded
-    warm at 1.03 x the plain version's cold price (12 trips of 48 steps); tolerances as in phase 3."""
+    warm at 1.03 x the plain version's cold price (12 trips of 48 steps); tolerances as in phase 3.
+    B1 on budgets U(0.2, 4), 0 on inactive rows and on one active row
+    (t* = 1/TINY there, its split 0), its split summing to each budget;
+    B2 at 24 trips on a price per row, p_max times U(0.1, 0.9) and 1.15 on
+    every seventh row (the opt-out); both bitwise alike at every depth."""
     from repro_torch.core import intra
     from repro_torch.kernels import ops
+    from repro_torch.kernels.bisect_alloc import bisect_alloc_plain
+    from repro_torch.kernels.dual_demand import dual_demand_plain
     from repro_torch.kernels.market_clear import (grid_limits,
                                                   market_clear_plain,
                                                   mbdf_demand_plain)
@@ -627,12 +672,37 @@ def edge_matrix_phase() -> dict:
             raise AssertionError(f"lane group ({lanes}, {regs}) for K = {k}")
     cases = [(n, k, "ragged") for n in EDGE_N for k in EDGE_K]
     cases += [(31, 45, "none"), (31, 45, "one")]
-    worst = {"market_clear": 0.0, "mbdf_demand": 0.0}
+    worst = {name: 0.0 for name in ("bisect_alloc", "dual_demand",
+                                     "market_clear", "mbdf_demand")}
     groups = set()
     for n, k, active in cases:
         svc = edge_market(n, k, active)
         a, t = svc.alpha, svc.t_comp
         groups.add(grid_limits(k, dev)[2:])
+        rng = np.random.default_rng([n, k, 1])
+        live = (a.sum(dim=1) > 0).cpu().numpy()
+        b = np.where(live, rng.uniform(0.2, 4.0, n), 0.0)
+        b[np.flatnonzero(live)[len(np.flatnonzero(live)) // 2:][:1]] = 0.0
+        b = torch.tensor(b, dtype=torch.float32, device=DEVICE)
+        tag = f"bisect_alloc@{n}x{k}/{active}"
+        got = ops.intra_allocate(a, t, b)
+        want = bisect_alloc_plain(a, t, b)
+        for g, w, key in zip(got, want, ("t_star", "split")):
+            worst["bisect_alloc"] = max(worst["bisect_alloc"], check_close(
+                tag, g, w, key)["max_dev"])
+        check_close(tag, got[1].sum(dim=1), b, "split_sum")
+        depths_bitwise(tag, "bisect_alloc", a, t, b, 48)
+        u = rng.uniform(0.1, 0.9, n)
+        u[::7] = 1.15
+        lam = (intra.p_max(svc) * torch.tensor(u, dtype=torch.float32,
+                                               device=DEVICE)).contiguous()
+        tag = f"dual_demand@{n}x{k}/{active}"
+        got = ops.dual_demand(a, t, lam, iters=24)
+        want = dual_demand_plain(a, t, lam, 24)
+        for g, w, key in zip(got, want, ("b", "slope")):
+            worst["dual_demand"] = max(worst["dual_demand"], check_close(
+                tag, g, w, key)["max_dev"])
+        depths_bitwise(tag, "dual_demand", a, t, lam, 24)
         cold = market_clear_plain(a, t, B_TOTAL, torch.tensor(
             -1.0, device=DEVICE), iters=12, newton_inner_iters=48)[2]
         lam_prev = (cold * 1.03).contiguous()
@@ -721,7 +791,7 @@ def b3_parts() -> dict:
     variants = {"a": (0, 0, 0), "b": (6, 0, 0), "c": (6, 0, 24),
                 "d": (6, 48, 24)}
     out = {}
-    for n, k, _ in KERNEL_SHAPES:
+    for n, k, _ in KERNEL_SHAPES[:2]:
         for label, svc in ((f"{n}x{k}", market(n, k)),
                            (f"{n}x{k}_full", full_market(n, k))):
             a, t = svc.alpha, svc.t_comp
@@ -767,6 +837,83 @@ def b4_parts() -> dict:
     row = {"n": n, "k": k, "m": m, "ms": out, "per_step_ms": per_step,
            "sass": divide_sass("mbdf_demand")}
     emit({"phase": "b4_parts", **row})
+    return row
+
+
+# B1 and B2 in parts: the main path's shape (10 x 45: the paper's ten
+# services, 25 +- sqrt(15) clients, K = simulator._k_cap), B1's market
+# selfish shape (8192 x 45), and phase 3's two market shapes.
+B12_SHAPES = ((10, 45), (8192, 45), (8191, 45), (8192, 32))
+B12_SWEEP_N = (10, 132, 528, 1056, 2112, 8192)   # the depth sweep, K = 45
+
+
+def b12_parts() -> dict:
+    """B1 and B2's time in parts at each of B12_SHAPES, on the market (as
+    ``market``: seed 5, 10% of rows inactive, cold coop price and budget)
+    and on its full copy: B1 with 0 and 48 trips, B2 with 0, 24 and 48
+    (giving the cost of a trip, and the zero lanes' cost as the full copy's
+    difference), the wrapper's time per call beside the kernel's, and the
+    count of divide checks and slow-path calls in each kernel's SASS.  Then
+    B1 (48 trips) and B2 (24 trips) at every speculation depth of
+    DEPTHS over B12_SWEEP_N at K = 45, each depth's outputs bitwise
+    those of depth 1, and the depth a launch picks by itself (one rule
+    for both)."""
+    from repro_torch.core import disba
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bisect_alloc import (bisect_alloc_cuda,
+                                                  bisect_alloc_plan)
+    from repro_torch.kernels.dual_demand import dual_demand_cuda
+
+    def inputs(svc):
+        cold = disba.solve_lambda_newton(svc, B_TOTAL)
+        return (svc.alpha, svc.t_comp, cold.b.contiguous(),
+                (cold.lam * 1.03).contiguous())
+
+    out = {}
+    for n, k in B12_SHAPES:
+        for label, svc in ((f"{n}x{k}", market(n, k)),
+                           (f"{n}x{k}_full", full_market(n, k))):
+            a, t, b, lam = inputs(svc)
+            ms = {f"b1@{it}": device_ms(
+                      lambda it=it: bisect_alloc_cuda(a, t, b, it))
+                  for it in (0, 48)}
+            ms.update({f"b2@{it}": device_ms(
+                           lambda it=it: dual_demand_cuda(a, t, lam, it))
+                       for it in (0, 24, 48)})
+            out[label] = {
+                "ms": ms,
+                "b1_per_trip_us": 1e3 * (ms["b1@48"] - ms["b1@0"]) / 48,
+                "b2_per_trip_us": 1e3 * (ms["b2@24"] - ms["b2@0"]) / 24,
+                "wrapper_ms": {
+                    "b1@48": event_ms(lambda: ops.intra_allocate(a, t, b)),
+                    "b2@24": event_ms(lambda: ops.dual_demand(
+                        a, t, lam, iters=disba.WARM_INNER_ITERS))}}
+        for key in ("b1@48", "b2@24", "b2@48"):
+            out[f"{n}x{k}"].setdefault("full_minus_market_ms", {})[key] = (
+                out[f"{n}x{k}_full"]["ms"][key] - out[f"{n}x{k}"]["ms"][key])
+    sweep = {}
+    for n in B12_SWEEP_N:
+        a, t, b, lam = inputs(market(n, 45))
+        row, first = {}, {}
+        for j in DEPTHS:
+            for name, fn in (
+                    ("b1@48", lambda: bisect_alloc_cuda(a, t, b, 48,
+                                                        depth=j)),
+                    ("b2@24", lambda: dual_demand_cuda(a, t, lam, 24,
+                                                       depth=j))):
+                got = fn()
+                if name in first:
+                    bitwise_repeats(f"{name}@{n}x45/depth {j}", fn,
+                                    first[name], reps=1)
+                else:
+                    first[name] = got
+                row[f"{name}/depth{j}"] = device_ms(fn)
+        row["picked"] = bisect_alloc_plan(n, 45, device=DEVICE)
+        sweep[f"{n}x45"] = row
+    row = {**out, "sweep": sweep,
+           "sass": {name: divide_sass(name)
+                    for name in ("bisect_alloc", "dual_demand")}}
+    emit({"phase": "b12_parts", **row})
     return row
 
 
@@ -1912,6 +2059,7 @@ def main() -> int:
     clock["xlstm_parity"] = time.perf_counter()
 
     per_shape = {(n, k): kernel_phase(n, k, m) for n, k, m in KERNEL_SHAPES}
+    b12_parts()
     b3_parts()
     b4_parts()
     edge_matrix_phase()
@@ -1965,6 +2113,8 @@ def main() -> int:
     rows = dict(per_shape[KERNEL_SHAPES[0][:2]])
     errors = {name: max(per_shape[s][name]["max_abs_err"] for s in per_shape)
               for name in rows}
+    for name in ("bisect_alloc", "dual_demand"):   # where their launches are
+        rows[name] = per_shape[MAIN_PATH_SHAPE][name]
     for name in ("flash_attention", "decode_attention"):
         rows[name] = attention[name, MAIN_CASE, torch.bfloat16]
         errors[name] = max(row["max_abs_err"] for key, row in attention.items()

@@ -76,8 +76,8 @@ __device__ __forceinline__ float2 grid_fold(float x, float y, bool use_max,
   __syncthreads();
   if (warp == 0) {
     const float2 v = lane < kClearWarps ? red[lane] : make_float2(0.f, 0.f);
-    const float bx = use_max ? warp_max(v.x) : warp_sum(v.x);
-    const float by = warp_sum(v.y);
+    const float bx = use_max ? group_max<kWarp>(v.x) : group_sum<kWarp>(v.x);
+    const float by = group_sum<kWarp>(v.y);
     if (lane == 0) {
       part[blockIdx.x] = make_float2(bx, by);
       store_release(tags + blockIdx.x, tag);
@@ -111,8 +111,8 @@ __device__ __forceinline__ float2 grid_fold(float x, float y, bool use_max,
       }
     }
     __syncwarp();
-    sx = use_max ? warp_max(sx) : warp_sum(sx);
-    sy = warp_sum(sy);
+    sx = use_max ? group_max<kWarp>(sx) : group_sum<kWarp>(sx);
+    sy = group_sum<kWarp>(sy);
     if (lane == 0) *bcast = make_float2(sx, sy);
   }
   // The next write to `red` and `bcast` comes after the next fold's first

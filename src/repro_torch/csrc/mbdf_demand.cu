@@ -41,7 +41,7 @@ mbdf_demand_kernel(const float* __restrict__ alpha,
   const int lane = threadIdx.x % kWarp;
   const int sub = lane % L;
   const long long pair =
-      ((long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp) * G +
+      ((long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp) * G +
       lane / L;
   const bool live = pair < (long long)n * m;
   const int row = live ? (int)(pair / m) : 0;
@@ -97,7 +97,7 @@ extern "C" int mbdf_demand_launch(const float* alpha, const float* tcomp,
     return cudaErrorInvalidValue;
   const long long warps = ((long long)n * m + kWarp / lanes - 1) /
                           (kWarp / lanes);
-  const long long grid = (warps + kRowsPerBlock - 1) / kRowsPerBlock;
+  const long long grid = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
 #define REPRO_CASE(L, R)                                                    \
   if (lanes == L && regs == R) {                                            \

@@ -3,8 +3,11 @@
 For every service row, 48 bisection trips on u = t - max_k t^C solve
 sum_k alpha_k / (u + gap_k) = b_n, then emit the optimal round time t*_n
 (1/TINY where b_n <= 0) and the water-filling split alpha_k / (u + gap_k)
-renormalized to sum to b_n.  The CUDA kernel is ``csrc/bisect_alloc.cu``;
-``bisect_alloc_plain`` repeats its arithmetic in PyTorch ops.
+renormalized to sum to b_n.  The CUDA kernel is ``csrc/bisect_alloc.cu``
+(row body ``bisect_group`` in ``csrc/rows.cuh``); ``bisect_alloc_plain``
+repeats its arithmetic in PyTorch ops.  The kernel picks its speculation
+depth (the trips it takes at once, with the bits of one at a time) from
+N, K and the card's SM count at launch; ``bisect_alloc_plan`` reports it.
 
 Convention: a client slot is valid iff alpha > 0 (masked slots carry
 alpha = 0); the valid-masked gap is 0, and every trip clamps the
@@ -17,7 +20,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _bisect, _build
 
 NEG_INF = -1e30
 TINY = 1e-30
@@ -34,14 +37,11 @@ def bisect_alloc_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
     tcmax = torch.amax(torch.where(valid, t_comp, NEG_INF), dim=1, keepdim=True)
     asum = torch.sum(alpha, dim=1, keepdim=True)
     gap = torch.where(valid, tcmax - t_comp, 0.0)
-    lo = torch.zeros_like(asum)
-    hi = asum / torch.clamp(b, min=TINY)
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        h = torch.sum(torch.where(valid, alpha / torch.clamp(mid + gap, min=TINY),
-                                  0.0), dim=1, keepdim=True) - b
-        go_right = h > 0.0
-        lo, hi = torch.where(go_right, mid, lo), torch.where(go_right, hi, mid)
+    lo, hi = _bisect.bisect_plain(
+        torch.zeros_like(asum), asum / torch.clamp(b, min=TINY), iters,
+        lambda mid: torch.sum(torch.where(
+            valid, alpha / torch.clamp(mid + gap, min=TINY), 0.0),
+            dim=1, keepdim=True) - b > 0.0)
     u = 0.5 * (lo + hi)
     t_star = tcmax + u
     raw = torch.where(valid, alpha / torch.clamp(u + gap, min=TINY), 0.0)
@@ -54,22 +54,38 @@ def bisect_alloc_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
 @functools.cache
 def _lib():
     lib = _build.library("bisect_alloc")
-    fn = lib.bisect_alloc_launch
-    fn.argtypes = [_c_void_p] * 5 + [_c_int] * 3 + [_c_void_p]
-    fn.restype = _c_int
-    return fn
+    plan, launch = lib.bisect_alloc_plan, lib.bisect_alloc_launch
+    plan.argtypes = [_c_int] * 4
+    launch.argtypes = [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p]
+    plan.restype = launch.restype = _c_int
+    return plan, launch
+
+
+def bisect_alloc_plan(n: int, k: int, depth: int = 0,
+                      device: torch.device | str = "cuda") -> int:
+    """The speculation depth of a launch of N rows of K clients on
+    ``device``'s card: the one it picks (``depth`` 0) or is given (1 or
+    2).  B2 (``dual_demand``) picks by the same rule (``rows.cuh``)."""
+    got = _lib()[0](n, k, depth, _bisect.sm_count(device))
+    if got < 0:
+        raise ValueError(f"bisect_alloc: no kernel for N = {n}, K = {k} at "
+                         f"depth {depth}")
+    return got
 
 
 def bisect_alloc_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
-                      b: torch.Tensor, iters: int = 48
+                      b: torch.Tensor, iters: int = 48, *, depth: int = 0
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream.  Inputs must already be
-    validated (``ops.intra_allocate`` does it)."""
+    validated (``ops.intra_allocate`` does it).  ``depth`` 0 lets the
+    launch pick its speculation depth; 1 or 2 forces one, for
+    measurement."""
     n, k = alpha.shape
     buf = torch.empty((n * (k + 1),), dtype=torch.float32, device=alpha.device)
     t_star, b_alloc = buf[:n], buf[n:].view(n, k)
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
-    status = _lib()(alpha.data_ptr(), t_comp.data_ptr(), b.data_ptr(),
-                    t_star.data_ptr(), b_alloc.data_ptr(), n, k, iters, stream)
+    status = _lib()[1](alpha.data_ptr(), t_comp.data_ptr(), b.data_ptr(),
+                       t_star.data_ptr(), b_alloc.data_ptr(), n, k, iters,
+                       depth, _bisect.sm_count(alpha.device), stream)
     _build.check(status, "bisect_alloc")
     return t_star, b_alloc

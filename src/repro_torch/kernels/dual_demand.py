@@ -6,8 +6,11 @@ condition (1 + f) * sum_k alpha_k / (1 - t^C_k f)^2 = 1 / lam on
 [0, F_CEIL / max t^C], opt out (f = 0) at lam >= p_max = 1/sum alpha, and
 emit the demand b = sum alpha f / (1 - t^C f) together with its Lemma 1 /
 Eqns. 9-10 closed-form slope db/dlam.  The CUDA kernel is
-``csrc/dual_demand.cu`` (row body in ``csrc/demand_slope.cuh``, shared with
-``market_clear``); ``dual_demand_plain`` repeats its arithmetic in PyTorch.
+``csrc/dual_demand.cu`` (row body ``demand_slope_group`` in
+``csrc/rows.cuh``, shared with ``market_clear``); ``dual_demand_plain``
+repeats its arithmetic in PyTorch.  The kernel picks its speculation depth
+from N, K and the card's SM count at launch (``rows.cuh`` ``plan``, the
+rule B1 follows too).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _bisect, _build
 
 NEG_INF = -1e30
 TINY = 1e-30
@@ -37,13 +40,13 @@ def demand_slope_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
     f_hi = torch.where(active, F_CEIL / torch.clamp(tcmax, min=TINY), 0.0)
     target = 1.0 / torch.clamp(lam, min=TINY)
 
-    lo, hi = torch.zeros_like(f_hi), f_hi
-    for _ in range(iters):
-        f = 0.5 * (lo + hi)
+    def go_right(f):
         one_m = torch.clamp(1.0 - t_comp * f, min=TINY)
         lhs = (1.0 + f) * torch.sum(alpha / (one_m * one_m), dim=1, keepdim=True)
-        go_right = (target - lhs) > 0.0
-        lo, hi = torch.where(go_right, f, lo), torch.where(go_right, hi, f)
+        return (target - lhs) > 0.0
+
+    lo, hi = _bisect.bisect_plain(torch.zeros_like(f_hi), f_hi, iters,
+                                  go_right)
     f = 0.5 * (lo + hi)
 
     p_max = torch.where(active, 1.0 / torch.clamp(asum, min=TINY), 0.0)
@@ -75,17 +78,18 @@ def dual_demand_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
 def _lib():
     fn = _build.library("dual_demand").dual_demand_launch
     fn.argtypes = ([_c_void_p] * 3 + [_c_int] + [_c_void_p] * 2
-                   + [_c_int] * 3 + [_c_void_p])
+                   + [_c_int] * 5 + [_c_void_p])
     fn.restype = _c_int
     return fn
 
 
 def dual_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
-                     lam: torch.Tensor, iters: int = 48
+                     lam: torch.Tensor, iters: int = 48, *, depth: int = 0
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream.  ``lam`` is a 0-d or
     (N,) float32 tensor on the same device; inputs must already be
-    validated (``ops.dual_demand`` does it)."""
+    validated (``ops.dual_demand`` does it).  ``depth`` as in
+    ``bisect_alloc_cuda``."""
     n, k = alpha.shape
     buf = torch.empty((2 * n,), dtype=torch.float32, device=alpha.device)
     b, slope = buf[:n], buf[n:]
@@ -93,6 +97,6 @@ def dual_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
     status = _lib()(alpha.data_ptr(), t_comp.data_ptr(), lam.data_ptr(),
                     lam_stride, b.data_ptr(), slope.data_ptr(), n, k, iters,
-                    stream)
+                    depth, _bisect.sm_count(alpha.device), stream)
     _build.check(status, "dual_demand")
     return b, slope

@@ -234,13 +234,19 @@ def test_mailbox_tags_only_grow():
 # ---------------------------------------------------------------------------
 
 def _cuda_market(n=8191, k=45):
-    a, t, _ = _edge_arrays(6, n, k, min_clients=2)
+    a, t, _ = _edge_arrays(6, n, k, min_clients=min(2, k))
     return torch.as_tensor(a).cuda(), torch.as_tensor(t).cuda()
 
 
+# B1 and B2 at the main path's shape (the paper's ten services, K = 45,
+# where the launch speculates) and at a market shape (depth 1).
+B12_SHAPES = [(10, 45), (8191, 45)]
+
+
 @needs_cuda
-def test_cuda_bisect_alloc_matches_plain():
-    a, t = _cuda_market()
+@pytest.mark.parametrize("n,k", B12_SHAPES)
+def test_cuda_bisect_alloc_matches_plain(n, k):
+    a, t = _cuda_market(n, k)
     b = torch.where(a.sum(1) > 0, 1e-3, 0.0)
     got, want = ops.intra_allocate(a, t, b), bisect_alloc_plain(a, t, b)
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
@@ -248,11 +254,59 @@ def test_cuda_bisect_alloc_matches_plain():
 
 
 @needs_cuda
-def test_cuda_dual_demand_matches_plain():
-    a, t = _cuda_market()
+@pytest.mark.parametrize("n,k", B12_SHAPES)
+def test_cuda_dual_demand_matches_plain(n, k):
+    a, t = _cuda_market(n, k)
     lam = torch.tensor(0.2, device="cuda")
     for g, w in zip(ops.dual_demand(a, t, lam), dual_demand_plain(a, t, lam)):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,k", B12_SHAPES + [(31, 1), (31, 64), (31, 128)])
+def test_cuda_speculation_depths_give_the_same_bits(n, k):
+    """B1's (t*, split) and B2's (b, slope) at depth 2, where it is
+    compiled (K <= 64), are the bits of depth 1, at 24, 48 and 7 trips."""
+    from repro_torch.kernels.bisect_alloc import (bisect_alloc_cuda,
+                                                  bisect_alloc_plan)
+    from repro_torch.kernels.dual_demand import dual_demand_cuda
+
+    a, t = _cuda_market(n, k)
+    b = torch.where(a.sum(1) > 0, 1e-3, 0.0)
+    lam = torch.full((n,), 0.02, device="cuda")
+    depths = [1, 2] if k <= 64 else [1]
+    assert [bisect_alloc_plan(n, k, j) for j in depths] == depths
+    for iters in (24, 48, 7):
+        first = [bisect_alloc_cuda(a, t, b, iters, depth=1),
+                 dual_demand_cuda(a, t, lam, iters, depth=1)]
+        for j in depths[1:]:
+            again = [bisect_alloc_cuda(a, t, b, iters, depth=j),
+                     dual_demand_cuda(a, t, lam, iters, depth=j)]
+            for x, y in zip(sum(map(list, first), []),
+                            sum(map(list, again), [])):
+                assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@needs_cuda
+def test_cuda_speculation_table_covers_every_k():
+    """For every K the kernels take: depth 1 always has a kernel; depth 2
+    exactly where lane_group gives groups of 8 lanes (K <= 64), four to a
+    warp; a launch picks depth 2 only there and only for a few rows a SM
+    (none at the market's 8192 rows)."""
+    from repro_torch.kernels.bisect_alloc import bisect_alloc_plan
+    from repro_torch.kernels.market_clear import grid_limits
+
+    for k in range(1, ops.MAX_K + 1):
+        lanes = grid_limits(k, 0)[2]
+        assert bisect_alloc_plan(1, k, 1) == 1, k
+        if lanes == 8:
+            assert bisect_alloc_plan(1, k, 2) == 2, k
+        else:
+            assert k > 64, k
+            with pytest.raises(ValueError):
+                bisect_alloc_plan(1, k, 2)
+        assert bisect_alloc_plan(10, k) == (2 if k <= 64 else 1), k
+        assert bisect_alloc_plan(8192, k) == 1, k
 
 
 @needs_cuda
