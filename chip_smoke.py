@@ -136,6 +136,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       paper's setting, then the same market-scale episode on "pallas";
    c. run_batch over 3 seeds with gauss_markov channels, gilbert churn
       and mmpp arrivals, warm coop on "megakernel" against "reference";
+   d. cotrain (slice 9): co-trained episodes (fl.cotrain, FedAvg of
+      bigram tables paced by each period's allocation) at BENCH_cotrain's
+      setting (benchmarks/paper_figs_cotrain.py:81-87: 5 services, K =
+      32, B = 2 MHz, T = 4 s, 48 rounds, 64 periods; vocab 32, seq 8,
+      batch 4, eval batch 32, rounds_cap 14, lr 0.5): warm coop on
+      "megakernel" and "pallas", es, pp and selfish on "pallas", and at
+      the paper's setting warm coop on "megakernel" and selfish on
+      "pallas", each against the same episode on "reference" on the card
+      (durations by compare_episodes; where the two trained the same
+      rounds with the same participants, loss and train_loss within
+      rtol 1e-4 / atol 1e-5, acc within one eval token, the final tables
+      within 1e-4) and against the plain run_scan of its config in the
+      same call (durations bitwise; periods/s, the ratio the cost of
+      training a period); per episode the host ms of a round's data
+      draws and the launches a period by kernel.  Then (cotrain_engines)
+      one seed's warm coop co-trained episode on the card against the
+      CPU, run_cotrain_batch over seeds 0-2 against run_cotrain_fleet at
+      chunk 2 and run_fleet over seeds 0-4 at chunk 2 against run_batch
+      (bitwise), the legacy run against run_scan (durations) and resumed
+      from its period-2 JSON snapshot against itself uninterrupted;
    per episode: rounds and durations equal (see compare_episodes for the
    one allowed exception), per-period b and f within tolerance (an
    auction's f beyond it must be the reference's f*(b) at its own b, see
@@ -152,7 +172,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
 9. the kernels line: per kernel, its launches on the paths of phases 2b,
-   5 and 7 (summed), its deviation, times and bound (B1 and B2 at 10 x
+   5 and 7 (summed; 7d must launch each of B1-B4), its deviation, times and bound (B1 and B2 at 10 x
    45, B3 and B4 at the market shape); B7's row lists its
    two bf16 kernels under "parts" (a launch count is a call of both).
 
@@ -1283,6 +1303,300 @@ def path_selfish() -> None:
     market_pair("selfish", False, "pallas")
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: training paced by allocation (fl.cotrain), run_fleet, legacy run.
+# ---------------------------------------------------------------------------
+
+# BENCH_cotrain's setting (benchmarks/paper_figs_cotrain.py:81-87).
+COTRAIN_SIM = dict(n_services_total=5, rounds_required=48, p_arrive=3.0,
+                   max_periods=64, k_max=32, mean_clients=12.0,
+                   var_clients=12.0)
+COTRAIN_NET = dict(total_bandwidth_mhz=2.0, period_s=4.0, mean_clients=12.0,
+                   var_clients=12.0, t_local_lo=0.15, t_local_hi=0.3)
+COTRAIN_TRAIN = dict(vocab=32, seq_len=8, batch_size=4, eval_batch=32,
+                     rounds_cap=14, client_lr=0.5)
+# (policy, warm, kernel backend), each against "reference" on the card
+COTRAIN_CASES = (("coop", True, "megakernel"), ("coop", True, "pallas"),
+                 ("es", False, "pallas"), ("pp", False, "pallas"),
+                 ("selfish", False, "pallas"))
+COTRAIN_PAPER_CASES = (("coop", True, "megakernel"),
+                       ("selfish", False, "pallas"))
+# The paper-setting cases cut to 40 periods (the whole episodes, 190-205
+# periods of up to 139 executed rounds, took 35 s on the card and 55 s on
+# "reference"): services arrive and train, none finishes.
+COTRAIN_PAPER = {"max_periods": 40}
+COTRAIN_SEEDS = (0, 1, 2)   # run_cotrain_batch against run_cotrain_fleet
+FLEET_SEEDS = (0, 1, 2, 3, 4)
+FLEET_CHUNK = 2
+COTRAIN_KERNELS = ("bisect_alloc", "dual_demand", "market_clear",
+                   "mbdf_demand")
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5   # loss, train_loss (the CPU tests')
+PARAMS_ATOL = 1e-4
+
+
+class TimedData:
+    """A co-trained episode's batch stream with the host seconds of its
+    training draws (one call a round; the episode's one eval draw is not
+    counted)."""
+
+    def __init__(self, data):
+        self.data, self.seconds, self.rounds = data, 0.0, 0
+
+    def batches(self, step, batch_size, client_ids):
+        from repro_torch.fl import cotrain
+
+        t0 = time.perf_counter()
+        out = self.data.batches(step, batch_size, client_ids)
+        if not np.all(np.asarray(step) == cotrain._EVAL_STEP):
+            self.seconds += time.perf_counter() - t0
+            self.rounds += 1
+        return out
+
+
+def cotrain_setting():
+    """(SimConfig kwargs, NetworkConfig, TrainSpec) of BENCH_cotrain."""
+    from repro_torch.core import network
+    from repro_torch.fl import cotrain
+
+    return (dict(COTRAIN_SIM), network.NetworkConfig(**COTRAIN_NET),
+            cotrain.TrainSpec(**COTRAIN_TRAIN))
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def cotrain_run(cfg, train, net, device=None) -> tuple:
+    """One co-trained episode: (result, seconds, launches by kernel, the
+    timed batch stream)."""
+    from repro_torch.fl import cotrain
+    from repro_torch.kernels import ops
+
+    device = device or DEVICE
+    data = TimedData(cotrain.default_data(train))
+    before = dict(ops.LAUNCHES)
+    _sync(device)
+    t0 = time.perf_counter()
+    res = cotrain.run_cotrain_scan(cfg, train, net, data=data, device=device)
+    _sync(device)
+    sec = time.perf_counter() - t0
+    return (res, sec, {name: ops.LAUNCHES[name] - before[name]
+                       for name in ops.LAUNCHES}, data)
+
+
+def training_deviation(label: str, got: dict, want: dict, train) -> dict:
+    """Where two co-trained episodes trained the same rounds with the same
+    participants: loss and train_loss within TRAIN_RTOL / TRAIN_ATOL, acc
+    within one eval token, the final tables within PARAMS_ATOL (raises
+    beyond).  Else the check is not made, and the row says so."""
+    h, rh = got["history"], want["history"]
+    same = (h["trained"].shape == rh["trained"].shape
+            and np.array_equal(h["trained"], rh["trained"])
+            and np.array_equal(h["participants"], rh["participants"]))
+    if not same:
+        return {"same_trained_stream": False}
+    out = {"same_trained_stream": True}
+    for key in ("loss", "train_loss"):
+        err = np.abs(h[key].astype(np.float64) - rh[key])
+        if np.any(err > TRAIN_ATOL + TRAIN_RTOL * np.abs(rh[key])):
+            raise AssertionError(f"{label}: {key} off by {err.max()}")
+        out[f"max_dev_{key}"] = float(err.max())
+    one_token = 1.0 / (train.eval_batch * train.seq_len)
+    acc = float(np.max(np.abs(h["acc"] - rh["acc"])))
+    params = float(np.max(np.abs(got["params"] - want["params"])))
+    if acc > one_token + 1e-6 or params > PARAMS_ATOL:
+        raise AssertionError(f"{label}: acc off by {acc}, params by "
+                             f"{params}")
+    out.update(max_dev_acc=acc, one_eval_token=one_token,
+               max_dev_params=params)
+    return out
+
+
+def cotrain_pair(label: str, cfg_kw: dict, net, train,
+                 must_finish: bool) -> dict:
+    """A co-trained episode on a kernel backend and on "reference" on the
+    card (durations as compare_episodes holds them, training by
+    training_deviation), and the plain run_scan of the kernel backend's
+    config in the same call: its durations bitwise the co-trained
+    episode's, its periods/s the ratio's denominator."""
+    from repro_torch.fl import simulator
+
+    backend = cfg_kw["intra_backend"]
+    auction = cfg_kw["policy"] == "selfish"
+    runs, sets = {}, []
+    for bk in (backend, "reference"):
+        cfg = simulator.SimConfig(**{**cfg_kw, "intra_backend": bk})
+        record = (recording_sets(cfg.policy, sets) if auction and bk == backend
+                  else contextlib.nullcontext())
+        with record:
+            runs[bk] = cotrain_run(cfg, train, net)
+    (kres, ksec, klaunch, kdata), (rres, rsec, rlaunch, _) = (
+        runs[backend], runs["reference"])
+    _check_launches(label, backend,
+                    (cfg_kw["policy"], cfg_kw["warm_start"], backend),
+                    klaunch, rlaunch)
+    cfg = simulator.SimConfig(**cfg_kw)
+    _sync(DEVICE)
+    t0 = time.perf_counter()
+    plain = simulator.run_scan(cfg, net, device=DEVICE)
+    _sync(DEVICE)
+    plain_s = time.perf_counter() - t0
+    if (plain["durations"] != kres["durations"]
+            or plain["periods"] != kres["periods"]):
+        raise AssertionError(f"{label}: co-trained durations "
+                             f"{kres['durations']} differ from run_scan's "
+                             f"{plain['durations']}")
+    periods = kres["periods"]
+    row = {"case": label, "periods": periods,
+           "services": cfg.n_services_total, "k_max": simulator._k_cap(cfg),
+           "cotrain_s": ksec, "reference_cotrain_s": rsec, "plain_s": plain_s,
+           "cotrain_periods_per_s": periods / ksec,
+           "plain_periods_per_s": plain["periods"] / plain_s,
+           "cotrain_over_plain": (periods / ksec) / (plain["periods"]
+                                                    / plain_s),
+           "reference_cotrain_periods_per_s": rres["periods"] / rsec,
+           "executed_rounds": int(sum(kres["trained_rounds"])),
+           "clipped_rounds": kres["clipped_rounds"],
+           "rounds_per_period_max": int(kres["history"]["trained"].sum(
+               axis=1).max()),
+           "training_rounds_drawn": kdata.rounds,
+           "host_ms_per_round_draws": (1e3 * kdata.seconds
+                                       / max(kdata.rounds, 1)),
+           "launches": klaunch,
+           "launches_per_period": {name: count / periods
+                                   for name, count in klaunch.items()
+                                   if count},
+           "final_loss": kres["history"]["loss"][-1].tolist(),
+           "final_acc": kres["history"]["acc"][-1].tolist(),
+           **training_deviation(label, kres, rres, train),
+           **compare_episodes(label, kres, rres, net.period_s, must_finish,
+                              auction=auction,
+                              f_at=f_at_own_b(sets, kres["history"]["b"]))}
+    emit({"phase": "cotrain", **row})
+    return row
+
+
+def _bitwise(label: str, got, want) -> None:
+    """Every array of two results (nested dicts and lists) equal bit for
+    bit."""
+    if isinstance(want, dict):
+        for key in want:
+            _bitwise(f"{label}/{key}", got[key], want[key])
+    elif isinstance(want, np.ndarray):
+        if not np.array_equal(got, want, equal_nan=want.dtype.kind == "f"):
+            raise AssertionError(f"{label} differs")
+    elif got != want:
+        raise AssertionError(f"{label} differs: {got} and {want}")
+
+
+def cotrain_engines() -> dict:
+    """At BENCH_cotrain's setting: one seed's warm coop co-trained episode
+    on the card and on the CPU; run_cotrain_batch over COTRAIN_SEEDS
+    against run_cotrain_fleet at chunk 2; run_fleet over FLEET_SEEDS at
+    FLEET_CHUNK against run_batch (warm coop on "megakernel"); the legacy
+    run against run_scan, and resumed from its period-2 snapshot against
+    itself uninterrupted."""
+    from repro_torch.fl import cotrain, simulator
+
+    cfg_kw, net, train = cotrain_setting()
+    out = {}
+    warm_ref = simulator.SimConfig(**cfg_kw, policy="coop", warm_start=True,
+                                   seed=SEEDED_SEED)
+    (card, card_s, _, _), (cpu, cpu_s, _, _) = (
+        cotrain_run(warm_ref, train, net, device=dev)
+        for dev in (DEVICE, "cpu"))
+    out["card_vs_cpu"] = {
+        "case": f"cotrain coop-warm-reference/seed {SEEDED_SEED}",
+        "periods": card["periods"], "card_s": card_s, "cpu_s": cpu_s,
+        "durations_equal": card["durations"] == cpu["durations"],
+        **training_deviation("cotrain card vs cpu", card, cpu, train),
+        **compare_episodes("cotrain card vs cpu", card, cpu, net.period_s,
+                           must_finish=True)}
+
+    warm = simulator.SimConfig(**cfg_kw, policy="coop", warm_start=True,
+                               intra_backend="megakernel")
+    t0 = time.perf_counter()
+    batch = cotrain.run_cotrain_batch(warm, train, COTRAIN_SEEDS, net,
+                                      device=DEVICE)
+    t1 = time.perf_counter()
+    fleet = cotrain.run_cotrain_fleet(warm, train, COTRAIN_SEEDS, net,
+                                      chunk_size=2, device=DEVICE)
+    t2 = time.perf_counter()
+    _bitwise("run_cotrain_fleet vs run_cotrain_batch",
+             {k: v for k, v in fleet.items() if k != "fleet"}, batch)
+    out["cotrain_fleet"] = {"seeds": list(COTRAIN_SEEDS),
+                            "periods": batch["periods"].tolist(),
+                            "batch_s": t1 - t0, "fleet_s": t2 - t1,
+                            "fleet": fleet["fleet"], "bitwise": True}
+
+    t0 = time.perf_counter()
+    batch = simulator.run_batch(warm, list(FLEET_SEEDS), net, device=DEVICE)
+    t1 = time.perf_counter()
+    fleet = simulator.run_fleet(warm, FLEET_SEEDS, net,
+                                chunk_size=FLEET_CHUNK, device=DEVICE)
+    t2 = time.perf_counter()
+    _bitwise("run_fleet vs run_batch",
+             {k: v for k, v in fleet.items() if k != "fleet"}, batch)
+    out["run_fleet"] = {"seeds": list(FLEET_SEEDS), "batch_s": t1 - t0,
+                        "fleet_s": t2 - t1, "fleet": fleet["fleet"],
+                        "bitwise": True}
+
+    scan = simulator.run_scan(warm, net, device=DEVICE)
+    t0 = time.perf_counter()
+    full = simulator.run(warm, net, device=DEVICE)
+    t1 = time.perf_counter()
+    path = ROOT / "build" / "legacy_run.json"
+    path.unlink(missing_ok=True)
+    simulator.run(dataclasses.replace(warm, max_periods=2), net,
+                  checkpoint_path=str(path), device=DEVICE)
+    snap = json.loads(path.read_text())
+    resumed = simulator.run(warm, net, state=snap, device=DEVICE)
+    if full["durations"] != scan["durations"]:
+        raise AssertionError(f"legacy run: durations {full['durations']}, "
+                             f"run_scan's {scan['durations']}")
+    if resumed["durations"] != full["durations"] or (
+            resumed["state"] != full["state"]):
+        raise AssertionError("legacy run: the resumed run differs from "
+                             "the uninterrupted one")
+    out["legacy_run"] = {"periods": full["periods"], "run_s": t1 - t0,
+                         "durations_equal_run_scan": True,
+                         "resumed_from_period": snap["period"],
+                         "resume_equal": True,
+                         "draw_stream": snap["draw_stream"]}
+    emit({"phase": "cotrain_engines", **out})
+    return out
+
+
+def cotrain_phase() -> dict:
+    """Slice 9's path: co-trained episodes at BENCH_cotrain's setting
+    (COTRAIN_CASES) and at the paper's (COTRAIN_PAPER_CASES), then the
+    engines (cotrain_engines)."""
+    from repro_torch.fl import simulator
+
+    cfg_kw, net, train = cotrain_setting()
+    # warm-up, untimed: the first vmapped grad steps on the card set up
+    # cuBLAS and the batching rules (~8 s)
+    cotrain_run(simulator.SimConfig(**{**cfg_kw, "max_periods": 4},
+                                    policy="coop", warm_start=True,
+                                    intra_backend="megakernel"), train, net)
+    rows = []
+    for pol, warm, backend in COTRAIN_CASES:
+        rows.append(cotrain_pair(
+            f"cotrain-bench-{pol}{'-warm' if warm else ''}-{backend}",
+            dict(cfg_kw, policy=pol, warm_start=warm, intra_backend=backend),
+            net, train, must_finish=True))
+    paper = simulator.SimConfig(**PAPER, **COTRAIN_PAPER)
+    for pol, warm, backend in COTRAIN_PAPER_CASES:
+        rows.append(cotrain_pair(
+            f"cotrain-paper-{pol}{'-warm' if warm else ''}-{backend}",
+            dict(PAPER, **COTRAIN_PAPER, policy=pol, warm_start=warm,
+                 intra_backend=backend),
+            simulator._default_net(paper), train,
+            must_finish=COTRAIN_PAPER.get("max_periods") is None))
+    return {"episodes": rows, **cotrain_engines()}
+
+
 def auction_phase() -> dict:
     """Phase 8: the auction entry on the card against the same call on the
     CPU, and the prefix charges against the rerun."""
@@ -2087,12 +2401,19 @@ def main() -> int:
              "slice1": drive_path("slice1", path_slice1),
              "selfish": drive_path("selfish", path_selfish),
              "run_batch": drive_path("run_batch", batch_pair)}
+    clock["allocation_paths"] = time.perf_counter()
+    paths["cotrain"] = drive_path("cotrain", cotrain_phase)
+    clock["cotrain"] = time.perf_counter()
     launches = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "launches", "launches": launches, "per_path": paths})
     missing = [name for name, count in launches.items() if count < 1]
     if missing:
         raise AssertionError(f"main paths never launched {missing}")
-    clock["allocation_paths"] = time.perf_counter()
+    missing = [name for name in COTRAIN_KERNELS
+               if not PATH_LAUNCHES["cotrain"][name]]
+    if missing:
+        raise AssertionError(f"the co-training path never launched "
+                             f"{missing}")
     draw_samplers()        # after the paths: its episodes count in no path
     clock["draw_samplers"] = time.perf_counter()
 

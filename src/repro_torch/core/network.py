@@ -193,3 +193,28 @@ def sample_services(
                                eps_client=channel_normals[1])
     return services_from_draws(*draws, cfg,
                                extra_pathloss_db=extra_pathloss_db)
+
+
+TABLE1_COUNTS = (10, 12, 14, 16, 18)
+
+
+def table1_service_set(generator: torch.Generator | int = 0,
+                       cfg: NetworkConfig = NetworkConfig(), *,
+                       draws: ServiceDraws | None = None
+                       ) -> tuple[ServiceSet, dict]:
+    """The representative period of §VI.B: 5 services with 10/12/14/16/18
+    clients (``k_max`` 18).  ``generator`` is a ``torch.Generator`` or an
+    int seed of a CPU generator; ``draws`` replaces its draws with a
+    period's raw draws of that shape (another package's, in a test)."""
+    counts = torch.tensor(TABLE1_COUNTS, dtype=torch.int32)
+    if draws is None:
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator().manual_seed(int(generator))
+        draws = sample_draws(generator, len(TABLE1_COUNTS), cfg, k_max=18,
+                             client_counts=counts)
+    elif draws.k_max != 18 or not torch.equal(
+            draws.client_counts.cpu().to(torch.int32), counts):
+        raise ValueError(f"table1 draws need k_max 18 and client counts "
+                         f"{TABLE1_COUNTS}, got {draws.k_max} and "
+                         f"{draws.client_counts.tolist()}")
+    return services_from_draws(*draws, cfg)

@@ -13,7 +13,11 @@ stops after the period in which every service finished; per period it
 waits on the host twice: for that stopping test, and (warm ``coop``) for
 the solver's non-finite rescue test.  ``run_batch`` runs one such episode
 per seed, each with its own warm state, and stacks the summaries as the
-JAX package's vmapped ``run_batch`` does.
+JAX package's vmapped ``run_batch`` does.  ``run_fleet`` walks a fleet of
+seeds a chunk at a time (``fleet_geometry``), each chunk as ``run_batch``
+runs it, its outputs on the host before the next chunk starts.  ``run``
+is the legacy checkpointable engine: a per-period loop over the same
+period step with plain-dict (JSON) state, resumable after a crash.
 
 Randomness comes from explicit ``torch.Generator``s seeded from
 ``cfg.seed``: the episode-static arrivals and client counts
@@ -26,6 +30,7 @@ package's draws through this engine.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -34,7 +39,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import scenarios
+from repro_torch import scenarios, tree
 from repro_torch.core import network, policy as policy_mod
 from repro_torch.core.types import (ServiceSet, default_device, mask_clients,
                                     mask_inactive, scale_uplink)
@@ -48,6 +53,19 @@ from repro_torch.scenarios import GeneratorSource, generator
 # gaps came from one sequence of uniforms, correlated (ROADMAP C4).
 _DRAW_SALT = (1 << 30) + 3
 _COUNTS_SALT = (1 << 30) + 4
+
+# Default chunk of run_fleet (the reference's: its (chunk, N, K) solver
+# working set stays cache-resident).
+FLEET_CHUNK = 64
+# The fleet's one mesh axis, by the reference's name.
+FLEET_AXIS = "seeds"
+
+# Version tag of this package's draw streams, written into the legacy
+# engine's snapshots.  A resume re-derives the arrivals, counts and every
+# period's draws from cfg.seed, so a snapshot written under another stream
+# (the reference package's threefry draws are "device/v1") would continue
+# with other arrivals than the ones behind its progress: it is refused.
+DRAW_STREAM = "torch-cpu/v1"
 
 _AGG_KEYS = ("freq_sum", "objective", "n_active", "n_clients")
 # The dtypes of the reference's stacked history.
@@ -310,6 +328,33 @@ def _check_draws(draws, period: int, n: int, k_max: int, device,
     return draws
 
 
+def _episode_sampler(cfg: SimConfig, net: network.NetworkConfig, counts,
+                     sampler, device):
+    """(sampler, own): the caller's sampler, or given none the engine's
+    own, which draws large periods ahead on host threads (``own``, to be
+    closed however the episode ends; None where the engine draws
+    inline)."""
+    if sampler is not None:
+        return sampler, None
+    if cfg.n_services_total * _k_cap(cfg) >= PREFETCH_MIN_SLOTS:
+        own = _PrefetchingSampler(cfg, net, counts, device)
+        return own, own
+    return default_sampler(cfg, net, counts, device), None
+
+
+def _period_draws(sampler, period: int, cfg: SimConfig, device,
+                  channel) -> PeriodDraws:
+    """``sampler(period)`` checked, with the engine's own scenario source
+    where the sampler gave none."""
+    draws = _check_draws(sampler(period), period, cfg.n_services_total,
+                         _k_cap(cfg), device, channel.rebuilds,
+                         cfg.channel_process)
+    if draws.source is None:
+        draws = draws._replace(
+            source=GeneratorSource(device, cfg.seed + 7, period))
+    return draws
+
+
 def _run_episode(cfg: SimConfig, net: network.NetworkConfig, arrivals,
                  counts, avail, sampler, device) -> _Episode:
     """The period loop of one episode, up to and including the period in
@@ -335,20 +380,10 @@ def _run_episode(cfg: SimConfig, net: network.NetworkConfig, arrivals,
     rounds_done = torch.zeros((n,), dtype=torch.int32, device=device)
     duration = torch.zeros((n,), dtype=torch.int32, device=device)
     history = []
-    # No sampler given: the engine's own, which draws large periods ahead
-    # on host threads and is closed however the episode ends.
-    own = None
-    if sampler is None and n * k_max >= PREFETCH_MIN_SLOTS:
-        sampler = own = _PrefetchingSampler(cfg, net, counts, device)
-    elif sampler is None:
-        sampler = default_sampler(cfg, net, counts, device)
+    sampler, own = _episode_sampler(cfg, net, counts, sampler, device)
     try:
         for period in range(cfg.max_periods):
-            draws = _check_draws(sampler(period), period, n, k_max, device,
-                                 chan.rebuilds, cfg.channel_process)
-            if draws.source is None:
-                draws = draws._replace(
-                    source=GeneratorSource(device, cfg.seed + 7, period))
+            draws = _period_draws(sampler, period, cfg, device, chan)
             if period == 0:
                 init = draws.init or GeneratorSource(device, cfg.seed + 7)
                 chan_state = chan.init(init, n, k_max)
@@ -512,3 +547,200 @@ def _pad_history(x: np.ndarray, key: str, max_periods: int) -> np.ndarray:
     pad = np.full((max_periods - len(x), *x.shape[1:]), key == "all_done",
                   x.dtype)
     return np.concatenate([x, pad])
+
+
+# ---------------------------------------------------------------------------
+# Fleet engine: a sweep over many seeds, a chunk at a time.
+# ---------------------------------------------------------------------------
+
+def fleet_geometry(seeds, mesh, chunk_size: int | None):
+    """Normalize a fleet request: derive the chunk grid (the reference's
+    arithmetic on one device) and pad the seed list with repeats of its
+    last seed to whole chunks.  Returns ``(mesh, axis, n_dev, chunk,
+    n_chunks, padded_seeds)``, as the reference does.  One card is one
+    device: ``mesh`` must be None (sharding a fleet over several cards
+    waits for the port's distributed layer)."""
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("fleet sweeps need at least one seed")
+    if mesh is not None:
+        raise NotImplementedError(
+            "a fleet mesh over several devices needs the port's distributed "
+            "layer (ROADMAP Queue A item 12); pass mesh=None")
+    chunk = max(1, min(chunk_size or FLEET_CHUNK, len(seeds)))
+    n_chunks = -(-len(seeds) // chunk)
+    padded = seeds + [seeds[-1]] * (n_chunks * chunk - len(seeds))
+    return None, FLEET_AXIS, 1, chunk, n_chunks, padded
+
+
+def fleet_chunks(seeds: list, chunk: int) -> list[list[int]]:
+    """The fleet's real seeds, chunk by chunk (the pad seeds would be
+    dropped before summarizing, so no chunk runs them)."""
+    return [seeds[i:i + chunk] for i in range(0, len(seeds), chunk)]
+
+
+def _concat(parts: list):
+    """Chunk results (numpy arrays, lists, or dicts of them) joined along
+    the seed axis."""
+    first = parts[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _concat([p[k] for p in parts]) for k in first}
+    if isinstance(first, list):
+        return [x for p in parts for x in p]
+    return np.concatenate(parts)
+
+
+def run_fleet(cfg: SimConfig, seeds, net: network.NetworkConfig | None = None,
+              *, mesh=None, chunk_size: int | None = None,
+              device=None) -> dict:
+    """A Monte-Carlo sweep over ``seeds``, ``chunk_size`` episodes at a
+    time (default ``FLEET_CHUNK``).  Each chunk runs as ``run_batch`` runs
+    it and its outputs reach host numpy before the next chunk starts;
+    without ``collect_history`` no (S, T) array is built.  Per seed the
+    outputs are bitwise ``run_batch``'s, at every chunk size.  Returns the
+    ``run_batch`` summary plus a ``"fleet"`` record of the geometry."""
+    device = torch.device(device) if device is not None else default_device()
+    net = net or _default_net(cfg)
+    seeds = [int(s) for s in seeds]
+    _, axis, n_dev, chunk, n_chunks, padded = fleet_geometry(
+        seeds, mesh, chunk_size)
+    parts = [run_batch(cfg, part, net, device=device)
+             for part in fleet_chunks(seeds, chunk)]
+    out = _concat(parts)
+    out["fleet"] = {"n_devices": n_dev, "mesh_axis": axis, "chunk": chunk,
+                    "n_chunks": n_chunks, "padded_to": len(padded)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Legacy checkpointable engine.
+# ---------------------------------------------------------------------------
+
+def _state_to_json(state) -> list:
+    """A scenario or policy state's leaves as nested lists (float32 values
+    print as the float64 that holds them, so they read back bit for
+    bit)."""
+    return [leaf.detach().cpu().tolist() for leaf in tree.leaves(state)]
+
+
+def _state_from_json(template, data: list):
+    """The state of ``_state_to_json`` rebuilt in ``template``'s structure,
+    dtypes, shapes and device."""
+    leaves = tree.leaves(template)
+    if len(data) != len(leaves):
+        raise ValueError(
+            f"checkpointed scenario state has {len(data)} leaves, the "
+            f"configured processes expect {len(leaves)} -- was the "
+            f"checkpoint written under a different scenario?")
+    return tree.unflatten(template, [
+        torch.tensor(d, dtype=leaf.dtype).reshape(leaf.shape).to(leaf.device)
+        for d, leaf in zip(data, leaves)])
+
+
+def run(cfg: SimConfig, net: network.NetworkConfig | None = None,
+        state: dict | None = None, checkpoint_path: str | None = None,
+        device=None) -> dict:
+    """Per-period loop until every service finishes.
+
+    Runs the same period step as ``run_scan`` on the same draws (so the
+    durations match it exactly) but keeps plain-dict state: ``state``
+    resumes a previous partial run and ``checkpoint_path`` gets a JSON
+    snapshot after every period, written to ``<path>.tmp`` and renamed
+    into place.  A period with no active service is skipped when every
+    process is stateless (each period draws from its own generator, so
+    no later draw shifts).  A snapshot written under another
+    ``DRAW_STREAM`` is refused.
+    """
+    device = torch.device(device) if device is not None else default_device()
+    net = net or _default_net(cfg)
+    arrivals, counts = _static_draws(cfg, net)
+    n, k_max = cfg.n_services_total, _k_cap(cfg)
+    if state is None:
+        state = {"period": 0, "rounds_done": [0] * n, "duration": [0] * n,
+                 "history": [], "draw_stream": DRAW_STREAM}
+    elif state["period"] > 0 and state.get("draw_stream") != DRAW_STREAM:
+        raise ValueError(
+            f"resume state was written under draw stream "
+            f"{state.get('draw_stream')!r}, this engine draws "
+            f"{DRAW_STREAM!r} -- the checkpoint's arrivals cannot be "
+            f"reconstructed; restart the episode")
+    period = state["period"]
+    rounds_done = list(state["rounds_done"])
+    duration = list(state["duration"])
+    history = list(state["history"])
+
+    pol = policy_mod.get_stateful_policy(
+        cfg.policy, warm_start=cfg.warm_start, n_bids=cfg.n_bids,
+        alpha_fair=cfg.alpha_fair, intra_backend=cfg.intra_backend)
+    chan = scenarios.get_channel(cfg.channel_process, net)
+    churn = scenarios.get_churn(cfg.churn_process, net)
+    sampler = default_sampler(cfg, net, counts, device)
+    init = GeneratorSource(device, cfg.seed + 7)
+
+    def restored(name: str, template):
+        if name in state:
+            return _state_from_json(template, state[name])
+        if period > 0 and tree.leaves(template):
+            raise ValueError(
+                f"resume state has no {name!r} but the configured scenario/"
+                f"policy processes are stateful -- was the snapshot written "
+                f"under a different configuration?")
+        return template
+
+    chan_state = restored("chan_state", chan.init(init, n, k_max))
+    churn_state = restored("churn_state", churn.init(init, n, k_max))
+    pol_state = restored("pol_state", pol.init_state(n, device))
+    stateless = not tree.leaves((chan_state, churn_state, pol_state))
+    arrivals_t = torch.as_tensor(arrivals, dtype=torch.int32, device=device)
+
+    def snapshot() -> dict:
+        return {"period": period, "rounds_done": rounds_done,
+                "duration": duration, "history": history,
+                "draw_stream": DRAW_STREAM,
+                "chan_state": _state_to_json(chan_state),
+                "churn_state": _state_to_json(churn_state),
+                "pol_state": _state_to_json(pol_state)}
+
+    while period < cfg.max_periods:
+        if all(r >= cfg.rounds_required for r in rounds_done):
+            break
+        active = [i for i in range(n) if arrivals[i] <= period
+                  and rounds_done[i] < cfg.rounds_required]
+        if active or not stateless:
+            (rd, du, chan_state, churn_state, pol_state, stats,
+             _) = _period_step(
+                torch.tensor(rounds_done, dtype=torch.int32, device=device),
+                torch.tensor(duration, dtype=torch.int32, device=device),
+                chan_state, churn_state, pol_state, period, arrivals_t,
+                sampler(period), policy_fn=pol.step, chan_step=chan.step,
+                churn_step=churn.step, chan_rebuilds=chan.rebuilds, net=net,
+                rounds_required=cfg.rounds_required)
+            rounds_done, duration = rd.tolist(), du.tolist()
+            if active:
+                history.append({"period": period, "active": active,
+                                "freq_sum": float(stats["freq_sum"]),
+                                "objective": float(stats["objective"]),
+                                "n_clients": int(stats["n_clients"])})
+        period += 1
+        if checkpoint_path is not None:
+            tmp = checkpoint_path + ".tmp"
+            with open(tmp, "w") as fp:
+                json.dump(snapshot(), fp)
+            os.replace(tmp, checkpoint_path)
+
+    out = {"avg_duration": float(np.mean(duration)),
+           "std_duration": float(np.std(duration)),
+           "durations": duration, "periods": period, "history": history,
+           "finished": all(r >= cfg.rounds_required for r in rounds_done),
+           "state": snapshot()}
+    if not cfg.collect_history:
+        # run_scan's aggregate-mode keys; the snapshot keeps the full list
+        out["history"] = None
+        out["totals"] = {
+            "freq_sum": float(sum(h["freq_sum"] for h in history)),
+            "objective": float(sum(h["objective"] for h in history)),
+            "n_active": float(sum(len(h["active"]) for h in history)),
+            "n_clients": float(sum(h["n_clients"] for h in history))}
+    return out

@@ -115,6 +115,14 @@ class ModelConfig:
         params = registry.build_model(self).init(0, device="meta")
         return sum(math.prod(x.shape) for x in _leaves(params))
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token.  Without routed experts (every
+        family this port runs) that is every parameter."""
+        if self.n_experts:
+            raise NotImplementedError(
+                f"{self.name}: active parameters of MoE layers (not ported)")
+        return self.param_count()
+
 
 PORTED_FAMILIES = ("dense", "ssm")
 

@@ -9,15 +9,17 @@ draws.
 from __future__ import annotations
 
 from repro_torch.scenarios import arrival, channel, churn  # noqa: F401  (register)
-from repro_torch.scenarios.base import (CHURN_SALT, FADING_SALT, INIT_SALT,
-                                        KINDS, STREAMS, ArraySource,
+from repro_torch.scenarios.base import (CHURN_SALT, COTRAIN_SALT,
+                                        FADING_SALT, INIT_SALT, KINDS,
+                                        STREAMS, ArraySource,
                                         GeneratorSource, Process, ScenarioSpec,
                                         Source, as_spec, available,
                                         generator, get_process, register,
                                         spec)
 
 __all__ = [
-    "CHURN_SALT", "FADING_SALT", "INIT_SALT", "KINDS", "STREAMS",
+    "CHURN_SALT", "COTRAIN_SALT", "FADING_SALT", "INIT_SALT", "KINDS",
+    "STREAMS",
     "ArraySource", "GeneratorSource", "Process", "ScenarioSpec", "Source",
     "as_spec", "available", "generator", "get_process", "register", "spec",
     "get_channel", "get_arrival", "get_churn",

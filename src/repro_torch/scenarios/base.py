@@ -35,6 +35,10 @@ KINDS = ("channel", "arrival", "churn")
 INIT_SALT = 1 << 30
 FADING_SALT = (1 << 30) + 1
 CHURN_SALT = (1 << 30) + 2
+# The co-trained episode's initial model parameters: service i's from
+# generator(seed + 7, COTRAIN_SALT, i), the counterpart of the reference's
+# fold_in(fold_in(key, COTRAIN_SALT), i).  No other draw reads it.
+COTRAIN_SALT = (1 << 30) + 4
 
 # Every named draw stream a process may ask a source for, with the salt
 # and index that seed it in a GeneratorSource.  The ``init_*`` streams are
