@@ -156,6 +156,33 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       chunk 2 and run_fleet over seeds 0-4 at chunk 2 against run_batch
       (bitwise), the legacy run against run_scan (durations) and resumed
       from its period-2 JSON snapshot against itself uninterrupted;
+   e. allocd (slice 10): the live daemon (launch.allocd over
+      fl.control_plane, solves in an executor thread).  At the paper's
+      network (16 slots, K = 45, 400 rounds, 40 ticks of Poisson(0.5)
+      admissions): warm coop on "megakernel" and "pallas", selfish and es
+      on "pallas", each against the same daemon on "reference" on the card
+      (compare_episodes on the served streams, completions equal) and
+      replayed through run_scan on the card bitwise (the ticks before the
+      first slot reuse: 19 admissions into 16 slots), warm coop
+      "megakernel" on the CPU too; at market capacity (MARKET_N services
+      admitted at tick 0, market_setting's network, 100 rounds, 10 ticks)
+      warm coop "megakernel" and selfish "pallas", replayed bitwise; each
+      with ticks/s, run_scan's periods/s on the same trace and the ms a
+      tick draws inline.  Then the poison drill (full planes poisoned at
+      NaN, +Inf and -Inf in the channel state and the warm seed, each
+      poisoned tick run on "reference" on the same inputs: the same
+      rescues and b, f within tolerance), the zero-load drill (clients
+      with alpha = 0, a whole row and each row's slowest, on "pallas" and
+      "megakernel" against "reference"), bench_fault's storms
+      (benchmarks/bench_fault.py:44-46: 16, 64, 256 slots, 40 periods,
+      on "megakernel" and "pallas", each twice with equal digests, every
+      invariant ok, every poisoned tick probed as above, the trajectory
+      against the "reference" storm's), bench_robust's Byzantine
+      co-training (benchmarks/bench_robust.py:68-85: sign_flip and nan
+      at 20% against fedavg, trimmed_mean, median and krum; durations
+      those of the clean episode, training bitwise alike on "megakernel"
+      and "reference", card against CPU loss within 1e-5, finite tables
+      from the robust aggregators under nan) and the CLI's --check;
    per episode: rounds and durations equal (see compare_episodes for the
    one allowed exception), per-period b and f within tolerance (an
    auction's f beyond it must be the reference's f*(b) at its own b, see
@@ -172,7 +199,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
 9. the kernels line: per kernel, its launches on the paths of phases 2b,
-   5 and 7 (summed; 7d must launch each of B1-B4), its deviation, times and bound (B1 and B2 at 10 x
+   5 and 7 (summed; 7d and 7e must each launch each of B1-B4), its
+   deviation, times and bound (B1 and B2 at 10 x
    45, B3 and B4 at the market shape); B7's row lists its
    two bf16 kernels under "parts" (a launch count is a call of both).
 
@@ -515,29 +543,31 @@ def kernel_phase(n: int, k: int, m: int) -> dict:
                                                   mbdf_demand_plain)
 
     svc = market(n, k)
-    a, t = svc.alpha, svc.t_comp
+    a, t, mk = svc.alpha, svc.t_comp, svc.mask
     cold = disba.solve_lambda_newton(svc, B_TOTAL)
     lam_prev = cold.lam * 1.03
     b = cold.b.contiguous()
-    valid = float((a > 0).sum())        # (row, client) pairs with work
-    nk = float(n * k)
+    valid = float(mk.sum())             # (row, client) pairs with work
+    nk = float(n * k)                   # also the mask's bytes
     trips_mc = 6 * disba.WARM_INNER_ITERS + 2 * 48
     cases = {
         "bisect_alloc": (
-            lambda: ops.intra_allocate(a, t, b),
-            lambda: bisect_alloc_plain(a, t, b),
+            lambda: ops.intra_allocate(a, t, mk, b),
+            lambda: bisect_alloc_plain(a, t, mk, b),
             ("t_star", "split"),
-            valid * 48, 4 * (2 * nk + n) + 4 * (n + nk)),
+            valid * 48, 4 * (2 * nk + n) + nk + 4 * (n + nk)),
         "dual_demand": (
-            lambda: ops.dual_demand(a, t, lam_prev, iters=disba.WARM_INNER_ITERS),
-            lambda: dual_demand_plain(a, t, lam_prev, disba.WARM_INNER_ITERS),
+            lambda: ops.dual_demand(a, t, mk, lam_prev,
+                                    iters=disba.WARM_INNER_ITERS),
+            lambda: dual_demand_plain(a, t, mk, lam_prev,
+                                      disba.WARM_INNER_ITERS),
             ("b", "slope"),
-            valid * disba.WARM_INNER_ITERS, 4 * (2 * nk + 1) + 4 * 2 * n),
+            valid * disba.WARM_INNER_ITERS, 4 * (2 * nk + 1) + nk + 4 * 2 * n),
         "market_clear": (
-            lambda: ops.market_clear(a, t, B_TOTAL, lam_prev),
-            lambda: market_clear_plain(a, t, B_TOTAL, lam_prev),
+            lambda: ops.market_clear(a, t, mk, B_TOTAL, lam_prev),
+            lambda: market_clear_plain(a, t, mk, B_TOTAL, lam_prev),
             ("b", "f", "lam"),
-            valid * trips_mc, 4 * (2 * nk + 2) + 4 * (2 * n + 1)),
+            valid * trips_mc, 4 * (2 * nk + 2) + nk + 4 * (2 * n + 1)),
     }
     out = {}
     for name, (kern, plain, keys, work, nbytes) in cases.items():
@@ -553,7 +583,7 @@ def kernel_phase(n: int, k: int, m: int) -> dict:
                                               "split_sum")
         if name in ("bisect_alloc", "dual_demand"):
             checks["bitwise_repeats"] = bitwise_repeats(tag, kern, got)
-            checks["depths_bitwise"] = depths_bitwise(tag, name, a, t, (
+            checks["depths_bitwise"] = depths_bitwise(tag, name, a, t, mk, (
                 b if name == "bisect_alloc" else lam_prev), iters=(
                 48 if name == "bisect_alloc" else disba.WARM_INNER_ITERS))
         if name == "market_clear":
@@ -576,8 +606,8 @@ def kernel_phase(n: int, k: int, m: int) -> dict:
     checks = {}
     for alpha_fair in (0.0, 0.5, 1.0):
         prices = auction.uniform_truthful_bids(svc, m, alpha_fair).prices
-        got = ops.mbdf_demand(a, t, prices, alpha_fair)
-        want = mbdf_demand_plain(a, t, prices, alpha_fair)
+        got = ops.mbdf_demand(a, t, mk, prices, alpha_fair)
+        want = mbdf_demand_plain(a, t, mk, prices, alpha_fair)
         torch.cuda.synchronize()
         tag = f"{name}@{n}x{k}x{m}/a={alpha_fair}"
         checks[f"demand@{alpha_fair}"] = check_close(tag, got, want, "demand")
@@ -589,12 +619,12 @@ def kernel_phase(n: int, k: int, m: int) -> dict:
             raise AssertionError(f"{tag}: inactive rows demand bandwidth")
     prices = auction.uniform_truthful_bids(svc, m, 0.5).prices
     work = valid * 48 * m
-    nbytes = 4 * (2 * nk + n * m) + 4 * n * m
+    nbytes = 4 * (2 * nk + n * m) + nk + 4 * n * m
     row = {"name": name, "n": n, "k": k, "m": m, "alpha_fair": 0.5,
            "max_abs_err": max(c["max_dev"] for c in checks.values()),
            "checks": checks,
-           **time_row(name, lambda: ops.mbdf_demand(a, t, prices, 0.5),
-                      lambda: mbdf_demand_plain(a, t, prices, 0.5),
+           **time_row(name, lambda: ops.mbdf_demand(a, t, mk, prices, 0.5),
+                      lambda: mbdf_demand_plain(a, t, mk, prices, 0.5),
                       OPS_PER_CLIENT_TRIP_PRICE * work, nbytes),
            "launches": ops.LAUNCHES[name] - launches_before}
     emit({"phase": "kernel_vs_plain", **row})
@@ -615,7 +645,7 @@ def bitwise_repeats(tag: str, kern, first, reps: int = 21) -> int:
     return reps
 
 
-def depths_bitwise(tag: str, name: str, a, t, x, iters: int) -> list:
+def depths_bitwise(tag: str, name: str, a, t, mk, x, iters: int) -> list:
     """Raise unless B1 (``x`` the budgets) or B2 (``x`` the prices) gives
     the bits of depth 1 at every depth of DEPTHS compiled for its K (depth
     2 where K <= 64); returns those depths."""
@@ -628,10 +658,10 @@ def depths_bitwise(tag: str, name: str, a, t, x, iters: int) -> list:
     for j in DEPTHS:
         with contextlib.suppress(ValueError):   # no kernel at this depth
             depths.append(bisect_alloc_plan(*a.shape, j, device=DEVICE))
-    first = fn(a, t, x, iters, depth=depths[0])
+    first = fn(a, t, mk, x, iters, depth=depths[0])
     for j in depths[1:]:
         bitwise_repeats(f"{tag}/depth {j}",
-                        lambda: fn(a, t, x, iters, depth=j), first, reps=1)
+                        lambda: fn(a, t, mk, x, iters, depth=j), first, reps=1)
     return depths
 
 
@@ -697,7 +727,7 @@ def edge_matrix_phase() -> dict:
     groups = set()
     for n, k, active in cases:
         svc = edge_market(n, k, active)
-        a, t = svc.alpha, svc.t_comp
+        a, t, mk = svc.alpha, svc.t_comp, svc.mask
         groups.add(grid_limits(k, dev)[2:])
         rng = np.random.default_rng([n, k, 1])
         live = (a.sum(dim=1) > 0).cpu().numpy()
@@ -705,30 +735,30 @@ def edge_matrix_phase() -> dict:
         b[np.flatnonzero(live)[len(np.flatnonzero(live)) // 2:][:1]] = 0.0
         b = torch.tensor(b, dtype=torch.float32, device=DEVICE)
         tag = f"bisect_alloc@{n}x{k}/{active}"
-        got = ops.intra_allocate(a, t, b)
-        want = bisect_alloc_plain(a, t, b)
+        got = ops.intra_allocate(a, t, mk, b)
+        want = bisect_alloc_plain(a, t, mk, b)
         for g, w, key in zip(got, want, ("t_star", "split")):
             worst["bisect_alloc"] = max(worst["bisect_alloc"], check_close(
                 tag, g, w, key)["max_dev"])
         check_close(tag, got[1].sum(dim=1), b, "split_sum")
-        depths_bitwise(tag, "bisect_alloc", a, t, b, 48)
+        depths_bitwise(tag, "bisect_alloc", a, t, mk, b, 48)
         u = rng.uniform(0.1, 0.9, n)
         u[::7] = 1.15
         lam = (intra.p_max(svc) * torch.tensor(u, dtype=torch.float32,
                                                device=DEVICE)).contiguous()
         tag = f"dual_demand@{n}x{k}/{active}"
-        got = ops.dual_demand(a, t, lam, iters=24)
-        want = dual_demand_plain(a, t, lam, 24)
+        got = ops.dual_demand(a, t, mk, lam, iters=24)
+        want = dual_demand_plain(a, t, mk, lam, 24)
         for g, w, key in zip(got, want, ("b", "slope")):
             worst["dual_demand"] = max(worst["dual_demand"], check_close(
                 tag, g, w, key)["max_dev"])
-        depths_bitwise(tag, "dual_demand", a, t, lam, 24)
-        cold = market_clear_plain(a, t, B_TOTAL, torch.tensor(
+        depths_bitwise(tag, "dual_demand", a, t, mk, lam, 24)
+        cold = market_clear_plain(a, t, mk, B_TOTAL, torch.tensor(
             -1.0, device=DEVICE), iters=12, newton_inner_iters=48)[2]
         lam_prev = (cold * 1.03).contiguous()
         tag = f"market_clear@{n}x{k}/{active}"
-        got = ops.market_clear(a, t, B_TOTAL, lam_prev)
-        want = market_clear_plain(a, t, B_TOTAL, lam_prev)
+        got = ops.market_clear(a, t, mk, B_TOTAL, lam_prev)
+        want = market_clear_plain(a, t, mk, B_TOTAL, lam_prev)
         for g, w, key in zip(got, want, ("b", "f", "lam")):
             worst["market_clear"] = max(worst["market_clear"], check_close(
                 tag, g, w, key)["max_dev"])
@@ -741,8 +771,8 @@ def edge_matrix_phase() -> dict:
             prices = (1.15 * steps[None, :] * pmax[:, None]
                       / (m + 1)).contiguous()
             tag = f"mbdf_demand@{n}x{k}x{m}/{active}"
-            got = ops.mbdf_demand(a, t, prices, 0.5)
-            want = mbdf_demand_plain(a, t, prices, 0.5)
+            got = ops.mbdf_demand(a, t, mk, prices, 0.5)
+            want = mbdf_demand_plain(a, t, mk, prices, 0.5)
             worst["mbdf_demand"] = max(worst["mbdf_demand"], check_close(
                 tag, got, want, "demand")["max_dev"])
             if not bool((got >= 0).all()):
@@ -814,11 +844,11 @@ def b3_parts() -> dict:
     for n, k, _ in KERNEL_SHAPES[:2]:
         for label, svc in ((f"{n}x{k}", market(n, k)),
                            (f"{n}x{k}_full", full_market(n, k))):
-            a, t = svc.alpha, svc.t_comp
+            a, t, mk = svc.alpha, svc.t_comp, svc.mask
             lam_prev = disba.solve_lambda_newton(svc, B_TOTAL).lam * 1.03
             ms = {v: device_ms(lambda it=it: ops.market_clear(
-                      a, t, B_TOTAL, lam_prev, iters=it[0], inner_iters=it[1],
-                      newton_inner_iters=it[2]))
+                      a, t, mk, B_TOTAL, lam_prev, iters=it[0],
+                      inner_iters=it[1], newton_inner_iters=it[2]))
                   for v, it in variants.items()}
             out[label] = {**ms, "per_trip_ms": (ms["b"] - ms["a"]) / 6,
                           "per_newton_step_ms": (ms["c"] - ms["b"]) / 144,
@@ -844,12 +874,12 @@ def b4_parts() -> dict:
     m = 5
     out = {}
     for label, svc in (("market", market(n, k)), ("full", full_market(n, k))):
-        a, t = svc.alpha, svc.t_comp
+        a, t, mk = svc.alpha, svc.t_comp, svc.mask
         for alpha_fair in (0.5, 0.0):
             prices = auction.uniform_truthful_bids(svc, m, alpha_fair).prices
             for iters in (48, 0):
                 out[f"{label}@a={alpha_fair},iters={iters}"] = device_ms(
-                    lambda: ops.mbdf_demand(a, t, prices, alpha_fair,
+                    lambda: ops.mbdf_demand(a, t, mk, prices, alpha_fair,
                                             iters=iters))
     per_step = {key: (out[f"{key},iters=48"] - out[f"{key},iters=0"]) / 48
                 for key in ("market@a=0.5", "market@a=0.0", "full@a=0.5",
@@ -886,40 +916,40 @@ def b12_parts() -> dict:
 
     def inputs(svc):
         cold = disba.solve_lambda_newton(svc, B_TOTAL)
-        return (svc.alpha, svc.t_comp, cold.b.contiguous(),
+        return (svc.alpha, svc.t_comp, svc.mask, cold.b.contiguous(),
                 (cold.lam * 1.03).contiguous())
 
     out = {}
     for n, k in B12_SHAPES:
         for label, svc in ((f"{n}x{k}", market(n, k)),
                            (f"{n}x{k}_full", full_market(n, k))):
-            a, t, b, lam = inputs(svc)
+            a, t, mk, b, lam = inputs(svc)
             ms = {f"b1@{it}": device_ms(
-                      lambda it=it: bisect_alloc_cuda(a, t, b, it))
+                      lambda it=it: bisect_alloc_cuda(a, t, mk, b, it))
                   for it in (0, 48)}
             ms.update({f"b2@{it}": device_ms(
-                           lambda it=it: dual_demand_cuda(a, t, lam, it))
+                           lambda it=it: dual_demand_cuda(a, t, mk, lam, it))
                        for it in (0, 24, 48)})
             out[label] = {
                 "ms": ms,
                 "b1_per_trip_us": 1e3 * (ms["b1@48"] - ms["b1@0"]) / 48,
                 "b2_per_trip_us": 1e3 * (ms["b2@24"] - ms["b2@0"]) / 24,
                 "wrapper_ms": {
-                    "b1@48": event_ms(lambda: ops.intra_allocate(a, t, b)),
+                    "b1@48": event_ms(lambda: ops.intra_allocate(a, t, mk, b)),
                     "b2@24": event_ms(lambda: ops.dual_demand(
-                        a, t, lam, iters=disba.WARM_INNER_ITERS))}}
+                        a, t, mk, lam, iters=disba.WARM_INNER_ITERS))}}
         for key in ("b1@48", "b2@24", "b2@48"):
             out[f"{n}x{k}"].setdefault("full_minus_market_ms", {})[key] = (
                 out[f"{n}x{k}_full"]["ms"][key] - out[f"{n}x{k}"]["ms"][key])
     sweep = {}
     for n in B12_SWEEP_N:
-        a, t, b, lam = inputs(market(n, 45))
+        a, t, mk, b, lam = inputs(market(n, 45))
         row, first = {}, {}
         for j in DEPTHS:
             for name, fn in (
-                    ("b1@48", lambda: bisect_alloc_cuda(a, t, b, 48,
+                    ("b1@48", lambda: bisect_alloc_cuda(a, t, mk, b, 48,
                                                         depth=j)),
-                    ("b2@24", lambda: dual_demand_cuda(a, t, lam, 24,
+                    ("b2@24", lambda: dual_demand_cuda(a, t, mk, lam, 24,
                                                        depth=j))):
                 got = fn()
                 if name in first:
@@ -1595,6 +1625,683 @@ def cotrain_phase() -> dict:
             simulator._default_net(paper), train,
             must_finish=COTRAIN_PAPER.get("max_periods") is None))
     return {"episodes": rows, **cotrain_engines()}
+
+
+# ---------------------------------------------------------------------------
+# Slice 10: the live allocation daemon (allocd), its chaos drills, and
+# Byzantine clients in co-training.
+# ---------------------------------------------------------------------------
+
+# The paper's network (NetworkConfig(): B = 10 MHz, T = 20 s) at K = 45
+# (simulator._k_cap of the paper's SimConfig), 40 ticks of Poisson(0.5)
+# admissions (poisson_admissions on default_rng(0)).
+ALLOCD_PAPER = dict(capacity=16, k_max=45, rounds_required=400)
+ALLOCD_TICKS, ALLOCD_RATE = 40, 0.5
+ALLOCD_CASES = (("coop", True, "megakernel"), ("coop", True, "pallas"),
+                ("selfish", False, "pallas"), ("es", False, "pallas"))
+ALLOCD_MARKET_TICKS = 10
+ALLOCD_MARKET_CASES = (("coop", True, "megakernel"),
+                       ("selfish", False, "pallas"))
+# benchmarks/bench_fault.py:44-46 (its full plan) and :49-55 (the storm's
+# config), on the kernel backends.
+STORM = dict(capacities=(16, 64, 256), periods=40, k_max=16,
+             rounds_required=400, seed=42, save_every=5)
+STORM_BACKENDS = ("megakernel", "pallas")
+# benchmarks/bench_robust.py:68-85, warm coop on "megakernel".
+ROBUST_SIM = dict(policy="coop", warm_start=True, n_services_total=2,
+                  rounds_required=40, p_arrive=2.0, max_periods=60, k_max=12,
+                  mean_clients=9.0, var_clients=1.0)
+ROBUST_NET = dict(period_s=1.0, mean_clients=9.0, var_clients=1.0)
+ROBUST_TRAIN = dict(vocab=16, seq_len=6, batch_size=2, eval_batch=32,
+                    rounds_cap=3)
+ROBUST_ATTACKS = ("sign_flip", "nan")
+ROBUST_AGGREGATORS = ("fedavg", "trimmed_mean", "median", "krum")
+ROBUST_ATTACK = dict(byz_frac=0.2, scale=20.0, seed=1)
+ROBUST_OPTIONS = dict(trim_frac=0.25, byz_f=3)
+CARD_CPU_LOSS_ATOL = 1e-5
+# The CLI at its defaults but the capacity: 40 periods of Poisson(0.5)
+# admit 19 services, and in the default 16 slots the 17th reuses a freed
+# slot, which no single run_scan episode replays (the JAX package's CLI
+# prints "trace not replayable" at the defaults too).
+ALLOCD_CLI = ("--periods", "40", "--check", "--capacity", "24")
+ALLOCD_KERNELS = COTRAIN_KERNELS
+
+
+async def _serve_ticks(daemon, workload: dict, n_ticks: int,
+                       prefix: dict, tick_s: list) -> None:
+    """allocd's workload loop, keeping in ``prefix`` the last trace that
+    still replayed as one run_scan episode, and each tick's seconds."""
+    for p in range(n_ticks):
+        for req in workload.get(p, ()):
+            daemon.submit(req)
+        if daemon.plane.replayable:
+            prefix.update(period=daemon.plane.period,
+                          trace=daemon.plane.trace())
+        t0 = time.perf_counter()
+        await daemon.step_period()
+        tick_s.append(time.perf_counter() - t0)
+    await daemon.close()
+
+
+def daemon_run(cfg, net, workload: dict, n_ticks: int, device=None) -> dict:
+    """One daemon serving ``workload`` for ``n_ticks`` ticks (asyncio loop,
+    solves in the executor thread), with its seconds, launches by kernel,
+    the seconds each tick spent drawing its period inline, and the longest
+    replayable prefix of its trace."""
+    import asyncio
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import allocd
+
+    device = device or DEVICE
+    daemon = allocd.AllocDaemon(cfg, net, device=device)
+    draw_s, tick_s, prefix = [], [], {}
+    inner = daemon.plane._draws
+
+    def timed_draws(period):
+        t0 = time.perf_counter()
+        out = inner(period)
+        draw_s.append(time.perf_counter() - t0)
+        return out
+
+    daemon.plane._draws = timed_draws
+    before = dict(ops.LAUNCHES)
+    _sync(device)
+    t0 = time.perf_counter()
+    asyncio.run(_serve_ticks(daemon, workload, n_ticks, prefix, tick_s))
+    _sync(device)
+    return {"daemon": daemon, "seconds": time.perf_counter() - t0,
+            "tick_s": tick_s, "draw_s": draw_s, "prefix": prefix,
+            "launches": {name: ops.LAUNCHES[name] - before[name]
+                         for name in ops.LAUNCHES}}
+
+
+def replay_check(label: str, run: dict) -> dict:
+    """The daemon's fresh stream against run_scan on its trace, on its
+    device, bit for bit: invariants._check_replay where the whole trace
+    replays, else the longest replayable prefix (the ticks before the
+    first slot reuse) the same way.  Returns run_scan's rate on it."""
+    from repro_torch.chaos import invariants
+    from repro_torch.fl import simulator
+
+    plane = run["daemon"].plane
+    _sync(plane.device)
+    t0 = time.perf_counter()
+    if plane.replayable:
+        res = invariants._check_replay(plane)
+        periods = plane.period
+    else:
+        periods, (arrivals, counts) = (run["prefix"]["period"],
+                                       run["prefix"]["trace"])
+        cfg = dataclasses.replace(plane.replay_sim_config(),
+                                  max_periods=max(periods, 1))
+        hist = simulator.run_scan(cfg, plane.net, arrivals=arrivals,
+                                  counts=counts,
+                                  device=plane.device)["history"]
+        done = [d for d in plane.decisions if d.period < len(hist["b"])]
+        bad = [d.period for d in done if not all(
+            np.array_equal(getattr(d, key), hist[key][d.period])
+            for key in ("b", "f", "active"))]
+        res = {"ok": not bad, "skipped": False, "checked": len(done),
+               "mismatch_periods": bad[:10]}
+        periods = len(hist["b"])
+    _sync(plane.device)
+    sec = time.perf_counter() - t0
+    if not res["ok"] or res["skipped"] or not res["checked"]:
+        raise AssertionError(f"{label}: the daemon's stream does not "
+                             f"replay through run_scan: {res}")
+    return {"replay_bitwise_ticks": res["checked"],
+            "replay_whole_trace": plane.replayable,
+            "unreplayable_reasons": plane.unreplayable_reasons,
+            "run_scan_periods_per_s": periods / sec}
+
+
+def daemon_episode(run: dict, period_s: float) -> dict:
+    """A daemon's served stream in compare_episodes's terms: b, f and
+    activity per tick, the rounds floor(f T) the tick granted, and per
+    slot the ticks it was active."""
+    daemon = run["daemon"]
+    served = daemon.served
+    f = np.stack([d.f for d in served])
+    active = np.stack([d.active for d in served])
+    return {"periods": len(served), "finished": True,
+            "fallbacks": daemon.plane.metrics["solver_fallbacks"],
+            "durations": active.sum(axis=0).tolist(),
+            "history": {"b": np.stack([d.b for d in served]), "f": f,
+                        "active": active,
+                        "rounds": np.maximum(np.floor(
+                            np.float32(period_s) * f), 0).astype(np.int32)}}
+
+
+def _retired(run: dict) -> list:
+    return [(r.service_id, r.slot, r.retired_period)
+            for r in run["daemon"].plane.retired]
+
+
+def _rates(run: dict) -> dict:
+    ticks = len(run["tick_s"])
+    return {"ticks_per_s": ticks / run["seconds"],
+            "steady_ticks_per_s": (ticks - 1) / sum(run["tick_s"][1:]),
+            "tick_ms_median": 1e3 * float(np.median(run["tick_s"])),
+            "first_tick_ms": 1e3 * run["tick_s"][0],
+            "draw_ms_median": 1e3 * float(np.median(run["draw_s"])),
+            "launches_per_tick": {name: n / ticks for name, n in
+                                  run["launches"].items() if n}}
+
+
+def allocd_paper_case(policy: str, warm: bool, backend: str) -> dict:
+    """The daemon at the paper's network on a kernel backend and on
+    "reference" on the card (served streams held by compare_episodes,
+    completions equal), its replay through run_scan, and for warm coop on
+    "megakernel" the same daemon on the CPU."""
+    from repro_torch.core import network
+    from repro_torch.fl import control_plane
+    from repro_torch.launch import allocd
+
+    label = f"allocd-paper-{policy}{'-warm' if warm else ''}-{backend}"
+    net = network.NetworkConfig()
+    workload = allocd.poisson_admissions(
+        np.random.default_rng(0), ALLOCD_RATE, ALLOCD_TICKS,
+        ALLOCD_PAPER["k_max"])
+    auction = policy == "selfish"
+    runs, sets = {}, []
+    for bk in (backend, "reference"):
+        cfg = control_plane.ControlPlaneConfig(
+            **ALLOCD_PAPER, policy=policy, warm_start=warm, intra_backend=bk)
+        record = (recording_sets(policy, sets) if auction and bk == backend
+                  else contextlib.nullcontext())
+        with record:
+            # the step caches its policy: build it inside the recording
+            control_plane._serve_step.cache_clear()
+            runs[bk] = daemon_run(cfg, net, workload, ALLOCD_TICKS)
+        control_plane._serve_step.cache_clear()
+    kern, ref = runs[backend], runs["reference"]
+    _check_launches(label, backend, (policy, warm, backend),
+                    kern["launches"], ref["launches"])
+    got = daemon_episode(kern, net.period_s)
+    row = {"case": label, "ticks": ALLOCD_TICKS,
+           "admitted": kern["daemon"].plane.metrics["admitted"],
+           **_rates(kern),
+           "reference_ticks_per_s": ALLOCD_TICKS / ref["seconds"],
+           "launches": kern["launches"],
+           **replay_check(label, kern),
+           **compare_episodes(label, got, daemon_episode(ref, net.period_s),
+                              net.period_s, must_finish=False,
+                              auction=auction,
+                              f_at=f_at_own_b(sets, got["history"]["b"]))}
+    row["daemon_over_run_scan"] = (row["ticks_per_s"]
+                                   / row["run_scan_periods_per_s"])
+    row["retired_equal"] = _retired(kern) == _retired(ref)
+    if not row["retired_equal"] and not row["round_flips"]:
+        raise AssertionError(f"{label}: services completed at other ticks "
+                             f"than on \"reference\" with no round flip")
+    if (policy, warm, backend) == ("coop", True, "megakernel"):
+        cpu = daemon_run(runs[backend]["daemon"].plane.cfg, net, workload,
+                         ALLOCD_TICKS, device="cpu")
+        row["card_vs_cpu"] = {
+            "cpu_ticks_per_s": ALLOCD_TICKS / cpu["seconds"],
+            **compare_episodes(f"{label} card vs cpu", got,
+                               daemon_episode(cpu, net.period_s),
+                               net.period_s, must_finish=False)}
+    emit({"phase": "allocd", **row})
+    return row
+
+
+def allocd_market_case(policy: str, warm: bool, backend: str) -> dict:
+    """The daemon at market capacity: MARKET_N services admitted at tick 0
+    (market_setting's client counts and 1 MHz a service), 10 ticks; its
+    replay through run_scan bitwise, ticks/s against run_scan's periods/s
+    on the same trace, and the ms a tick spends drawing its period."""
+    from repro_torch.fl import control_plane
+    from repro_torch.launch import allocd
+
+    label = f"allocd-market{MARKET_N}-{policy}{'-warm' if warm else ''}" \
+            f"-{backend}"
+    net, _, counts = market_setting()
+    cfg = control_plane.ControlPlaneConfig(
+        capacity=MARKET_N, k_max=45, rounds_required=100, policy=policy,
+        warm_start=warm, intra_backend=backend)
+    workload = {0: [allocd.Admit(i, int(c)) for i, c in enumerate(counts)]}
+    run = daemon_run(cfg, net, workload, ALLOCD_MARKET_TICKS)
+    missing = [name for name in EXPECTED[policy, warm, backend]
+               if not run["launches"][name]]
+    if missing:
+        raise AssertionError(f"{label}: never launched {missing}")
+    row = {"case": label, "ticks": ALLOCD_MARKET_TICKS, **_rates(run),
+           "launches": run["launches"],
+           "retired": run["daemon"].plane.metrics["retired"],
+           **replay_check(label, run)}
+    row["daemon_over_run_scan"] = (row["ticks_per_s"]
+                                   / row["run_scan_periods_per_s"])
+    emit({"phase": "allocd", **row})
+    return row
+
+
+@contextlib.contextmanager
+def probing_poisoned_ticks(probes: list):
+    """Within the block, every plane built through ``allocd`` runs each
+    tick whose carry holds a non-finite value (a chaos poisoning) through
+    the same period step on "reference" too, on copies of the same inputs,
+    and appends the comparison to ``probes``: the rescue counts, the
+    carry's non-finite entries and where b and f are finite must agree,
+    and b and f within tolerance there (raises beyond)."""
+    from repro_torch import scenarios, tree
+    from repro_torch.core import policy as policy_mod
+    from repro_torch.fl import control_plane
+    from repro_torch.launch import allocd
+
+    def rescues(pol_state) -> int:
+        return (int(pol_state.fallbacks)
+                if isinstance(pol_state, policy_mod.WarmDualState) else 0)
+
+    class ProbedPlane(control_plane.ControlPlane):
+        def __init__(self, cfg, *args, **kwargs):
+            super().__init__(cfg, *args, **kwargs)
+            inner = self._step
+            ref_step = control_plane._serve_step(
+                cfg.policy, cfg.n_bids, cfg.alpha_fair, "reference",
+                cfg.warm_start, self.net, cfg.rounds_required,
+                scenarios.as_spec(cfg.channel_process, "iid"),
+                scenarios.as_spec(cfg.churn_process, "none"))[0]
+
+            def step(*args):
+                floats = [x for x in tree.leaves(args[:5])
+                          if x.is_floating_point()]
+                if all(bool(torch.isfinite(x).all()) for x in floats):
+                    return inner(*args)
+                copy = tree.tree_map(
+                    lambda x: x.clone() if torch.is_tensor(x) else x,
+                    list(args))
+                out = inner(*args)
+                want = ref_step(*copy)
+                label = f"poisoned tick {args[5]} ({cfg.intra_backend})"
+                got_fb, want_fb = rescues(out[4]), rescues(want[4])
+                bad = [sum(int((~torch.isfinite(x)).sum()) for x in
+                           tree.leaves(o[:5]) if x.is_floating_point())
+                       for o in (out, want)]
+                if got_fb != want_fb or bad[0] != bad[1]:
+                    raise AssertionError(
+                        f"{label}: rescues {got_fb} / {want_fb}, non-finite "
+                        f"carry entries {bad[0]} / {bad[1]}")
+                row = {"period": int(args[5]), "policy": cfg.policy,
+                       "backend": cfg.intra_backend, "fallbacks": got_fb,
+                       "carry_nonfinite": bad[0]}
+                for key in ("b", "f"):
+                    g, w = out[6][key].cpu(), want[6][key].cpu()
+                    fin = torch.isfinite(w)
+                    if not torch.equal(torch.isfinite(g), fin):
+                        raise AssertionError(f"{label}: {key} non-finite "
+                                             f"at other entries")
+                    row[key] = (check_close(label, g[fin], w[fin],
+                                            key)["max_dev"]
+                                if fin.any() else None)
+                    row[f"{key}_nonfinite"] = int((~fin).sum())
+                probes.append(row)
+                return out
+
+            self._step = step
+
+    real = allocd.ControlPlane
+    allocd.ControlPlane = ProbedPlane
+    try:
+        yield probes
+    finally:
+        allocd.ControlPlane = real
+
+
+@contextlib.contextmanager
+def keeping_engines(engines: list):
+    """Within the block, every chaos engine a storm builds is appended to
+    ``engines`` (its served stream, for tracing a divergence)."""
+    from repro_torch.chaos import engine as engine_mod
+
+    real = engine_mod.ChaosEngine
+
+    class Kept(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+    engine_mod.ChaosEngine = Kept
+    try:
+        yield engines
+    finally:
+        engine_mod.ChaosEngine = real
+
+
+POISON_CASES = (("coop", True, "megakernel"), ("coop", True, "pallas"),
+                ("es", False, "pallas"), ("selfish", False, "pallas"))
+
+
+def poison_drill() -> list:
+    """Non-finite inputs on the card, where they reach the kernels: a plane
+    at the paper's network with every slot admitted at its full cohort
+    (so every channel entry is an active client) ticks, is poisoned as
+    SolverChaos poisons (a channel-state entry, for warm coop also the warm
+    seed, at NaN, +Inf and -Inf), and ticks twice more: each poisoned tick
+    is probed against "reference" on its inputs (probing_poisoned_ticks),
+    the decisions served are finite, and the plane's counters equal those
+    of the same drill on "reference"."""
+    from repro_torch.chaos import injectors
+    from repro_torch.core import network
+    from repro_torch.fl import control_plane
+    from repro_torch.launch import allocd
+
+    rows = []
+    for policy, warm, backend in POISON_CASES:
+        for poison in ("channel", "seed") if warm else ("channel",):
+            for value in (float("nan"), float("inf"), float("-inf")):
+                metrics, probes = {}, []
+                for bk in (backend, "reference"):
+                    cfg = control_plane.ControlPlaneConfig(
+                        capacity=16, k_max=45, rounds_required=100_000,
+                        policy=policy, warm_start=warm, intra_backend=bk,
+                        channel_process="gauss_markov")
+                    with probing_poisoned_ticks(probes if bk == backend
+                                                else []):
+                        plane = allocd.ControlPlane(
+                            cfg, network.NetworkConfig(), device=DEVICE)
+                        for i in range(cfg.capacity):
+                            plane.admit(i, cfg.k_max)
+                        plane.tick()
+                        if poison == "seed":
+                            ev = injectors.poison_warm_seed(plane, None,
+                                                            value=value)
+                        else:
+                            ev = poison_value(plane, value)
+                        served = [plane.tick(), plane.tick()]
+                    if not all(np.isfinite(d.b).all() and np.isfinite(d.f)
+                               .all() for d in served):
+                        raise AssertionError(f"poison drill {policy}/{bk}: "
+                                             f"a non-finite decision served")
+                    metrics[bk] = dict(plane.metrics)
+                label = f"poison-{policy}-{backend}-{poison}-{value}"
+                if metrics[backend] != metrics["reference"] or not probes:
+                    raise AssertionError(f"{label}: counters {metrics}, "
+                                         f"{len(probes)} ticks probed")
+                rows.append({"case": label, "event": ev,
+                             "probes": probes, **{
+                                 key: metrics[backend][key] for key in (
+                                     "solver_fallbacks", "carry_repairs",
+                                     "nonfinite_decisions",
+                                     "degraded_decisions")}})
+    emit({"phase": "poison_drill", "rows": rows})
+    return rows
+
+
+def zero_load_drill() -> list:
+    """Clients with no transmission load (alpha = 0: an infinite rate, as
+    a path loss poisoned to -inf dB gives) stay clients on the card: in
+    ten sampled services at K = 45, service 0 wholly (``all``), or in
+    every service the slowest client, its t^C raised 50-fold so that it
+    alone sets max t^C and the round time (``slowest``).  Each policy of
+    POISON_CASES and cold coop on "pallas" and "megakernel" (B1-B4 take a
+    row's clients from the set's mask) against "reference" on the same
+    inputs: b and f within tolerance."""
+    from repro_torch.core import network, policy
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    base, _ = network.sample_services(gen, 10, k_max=45)
+    rows = []
+    for case in ("all", "slowest"):
+        alpha, t_comp = base.alpha.clone(), base.t_comp.clone()
+        if case == "all":
+            alpha[0] = 0.0
+        else:
+            tc = torch.where(base.mask, t_comp, -torch.inf)
+            idx = torch.argmax(tc, dim=1)
+            rows_i = torch.arange(alpha.shape[0], device=DEVICE)
+            alpha[rows_i, idx] = 0.0
+            t_comp[rows_i, idx] *= 50.0
+        svc = base._replace(alpha=alpha, t_comp=t_comp)
+        for name, warm in sorted({(p, w) for p, w, _ in POISON_CASES}
+                                 | {("coop", False)}):
+            out = {}
+            for backend in ("reference", "pallas", "megakernel"):
+                pol = policy.get_stateful_policy(
+                    name, warm_start=warm, intra_backend=backend)
+                out[backend] = pol.step(svc, B_TOTAL,
+                                        pol.init_state(10, device=DEVICE))
+            label = f"zero_load-{case}-{name}{'-warm' if warm else ''}"
+            devs = {}
+            for backend in ("pallas", "megakernel"):
+                got, want = out[backend], out["reference"]
+                devs[backend] = {
+                    "b": check_close(f"{label}/{backend}", got[0], want[0],
+                                     "b")["max_dev"],
+                    "f": check_close(f"{label}/{backend}", got[1], want[1],
+                                     "f")["max_dev"]}
+            rows.append({"case": label, "max_dev": devs})
+    emit({"phase": "zero_load_drill", "rows": rows})
+    return rows
+
+
+def poison_value(plane, value: float) -> dict:
+    """poison_channel_state's write, at a given value: the first float leaf
+    of the channel state, entry 0 (an active client's here)."""
+    from repro_torch import tree
+
+    carry = list(plane._carry)
+    leaves = tree.leaves(carry[2])
+    leaf = leaves[0].clone()
+    leaf.view(-1)[0] = value
+    carry[2] = tree.unflatten(carry[2], [leaf] + leaves[1:])
+    plane._carry = tuple(carry)
+    return {"action": "poison_channel", "leaf": 0, "index": 0,
+            "value": repr(value)}
+
+
+def storm_once(capacity: int, backend: str, probes: list | None = None):
+    """One bench_fault storm on the card: (report, engine, seconds)."""
+    import tempfile
+
+    from repro_torch import chaos
+    from repro_torch.fl import control_plane
+
+    cfg = control_plane.ControlPlaneConfig(
+        capacity=capacity, k_max=STORM["k_max"], policy="coop",
+        warm_start=True, rounds_required=STORM["rounds_required"],
+        channel_process="gauss_markov", heartbeat_timeout_periods=2, seed=0,
+        intra_backend=backend)
+    engines = []
+    probe = (probing_poisoned_ticks(probes) if probes is not None
+             else contextlib.nullcontext())
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt, probe, \
+            keeping_engines(engines):
+        _sync(DEVICE)
+        t0 = time.perf_counter()
+        report = chaos.run_storm(cfg, seed=STORM["seed"],
+                                 n_periods=STORM["periods"],
+                                 checkpoint_dir=ckpt,
+                                 save_every=STORM["save_every"],
+                                 max_stale_streak=4, device=DEVICE)
+        _sync(DEVICE)
+    return report, engines[0], time.perf_counter() - t0
+
+
+def trajectory_against(label: str, got, want, period_s: float) -> dict:
+    """A kernel storm's event trajectory against the "reference" storm's:
+    equal, or the first divergence with the one-round flip before it that
+    explains it (raises when no flip does)."""
+    (report, engine), (ref_report, ref_engine) = got, want
+    if report["events"] == ref_report["events"]:
+        return {"trajectory_equal_reference": True}
+    events = (report["events"], ref_report["events"])
+    first = next((i for i, (a, b) in enumerate(zip(*events)) if a != b),
+                 min(map(len, events)))
+    period = min(ev[first]["period"] for ev in events if first < len(ev))
+    flips = []
+    for t, (d, r) in enumerate(zip(engine.served[:period + 1],
+                                   ref_engine.served[:period + 1])):
+        a = np.float32(period_s) * d.f
+        b = np.float32(period_s) * r.f
+        for slot in np.flatnonzero(np.floor(a) != np.floor(b)):
+            flips.append({"tick": t, "slot": int(slot),
+                          "fT_kernel": float(a[slot]),
+                          "fT_reference": float(b[slot])})
+    if not flips or any(abs(np.floor(f["fT_kernel"])
+                            - np.floor(f["fT_reference"])) != 1
+                        for f in flips):
+        raise AssertionError(f"{label}: the trajectory leaves the "
+                             f"reference's at event {first} (period "
+                             f"{period}) with no one-round flip before it")
+    return {"trajectory_equal_reference": False, "first_divergence":
+            {"event": first, "period": period}, "round_flips": flips}
+
+
+def storm_phase() -> list:
+    """bench_fault's full plan on the card: per capacity the storm on
+    "reference" and, per kernel backend, twice (equal digests; the first
+    run's poisoned ticks probed against "reference"), every invariant ok,
+    the trajectory against the reference's."""
+    rows = []
+    for capacity in STORM["capacities"]:
+        ref_report, ref_engine, ref_s = storm_once(capacity, "reference")
+        for backend in STORM_BACKENDS:
+            probes = []
+            r1, e1, s1 = storm_once(capacity, backend, probes)
+            r2, _, s2 = storm_once(capacity, backend)
+            label = f"storm-{capacity}-{backend}"
+            failed = [k for k, v in r1["invariants"].items() if not v["ok"]]
+            if failed or r1["digest"] != r2["digest"]:
+                raise AssertionError(f"{label}: invariants failed {failed}, "
+                                     f"digests {r1['digest']} / "
+                                     f"{r2['digest']}")
+            poisoned = sum(e["action"].startswith("poison")
+                           for e in r1["events"])
+            m = r1["metrics"]
+            row = {"case": label, "capacity": capacity, "backend": backend,
+                   "periods": STORM["periods"], "seconds": [s1, s2],
+                   "reference_seconds": ref_s, "digest": r1["digest"],
+                   "digest_repeat_equal": True, "n_events": r1["n_events"],
+                   "restarts": r1["restarts"], "served": r1["served"],
+                   "decisions_lost": r1["decisions_lost"],
+                   "recovery": r1["recovery"],
+                   **{key: m[key] for key in (
+                       "solver_fallbacks", "nonfinite_decisions",
+                       "carry_repairs", "checkpoint_skips", "admit_retries",
+                       "heartbeat_drops", "stale_decisions",
+                       "degraded_decisions")},
+                   "reference_metrics": ref_report["metrics"],
+                   "invariants_ok": True, "replay": r1["invariants"][
+                       "replay"],
+                   "poison_events": poisoned, "poisoned_ticks": probes,
+                   **trajectory_against(label, (r1, e1),
+                                        (ref_report, ref_engine),
+                                        e1.daemon.plane.net.period_s)}
+            emit({"phase": "storm", **row})
+            rows.append(row)
+    return rows
+
+
+def robust_phase() -> list:
+    """bench_robust's Byzantine co-training on the card: warm coop on
+    "megakernel" and "reference" and on the CPU, under sign_flip and nan
+    at 20% with each aggregator: durations those of the unattacked
+    episode, training bitwise alike on both backends, card against CPU
+    loss within CARD_CPU_LOSS_ATOL, finite tables from every robust
+    aggregator under nan."""
+    from repro_torch.chaos import AttackSpec, invariants
+    from repro_torch.core import network
+    from repro_torch.fl import cotrain, simulator
+
+    net = network.NetworkConfig(**ROBUST_NET)
+    train = cotrain.TrainSpec(**ROBUST_TRAIN)
+    cfg = simulator.SimConfig(**ROBUST_SIM, intra_backend="megakernel")
+    clean = cotrain.run_cotrain_scan(cfg, train, net, device=DEVICE)
+    plain = simulator.run_scan(cfg, net, device=DEVICE)
+    if clean["durations"] != plain["durations"]:
+        raise AssertionError("robust: the clean co-trained durations differ "
+                             "from run_scan's")
+    rows = []
+    for attack in ROBUST_ATTACKS:
+        spec_atk = AttackSpec(attack=attack, **ROBUST_ATTACK)
+        for aggregator in ROBUST_AGGREGATORS:
+            label = f"robust-{attack}-{aggregator}"
+            spec = dataclasses.replace(train, aggregator=aggregator,
+                                       **ROBUST_OPTIONS)
+            runs = {}
+            for name, bk, dev in (("card", "megakernel", DEVICE),
+                                  ("card_reference", "reference", DEVICE),
+                                  ("cpu", "megakernel", "cpu")):
+                _sync(DEVICE)
+                t0 = time.perf_counter()
+                runs[name] = cotrain.run_cotrain_scan(
+                    dataclasses.replace(cfg, intra_backend=bk), spec, net,
+                    device=dev, attack=spec_atk)
+                _sync(DEVICE)
+                runs[name]["seconds"] = time.perf_counter() - t0
+            got = runs["card"]
+            for name, res in runs.items():
+                if res["durations"] != clean["durations"]:
+                    raise AssertionError(f"{label}/{name}: the attack moved "
+                                         f"the durations")
+            training = ("loss", "acc", "train_loss", "trained",
+                        "participants")
+            _bitwise(f"{label} megakernel vs reference",
+                     {"history": {k: got["history"][k] for k in training},
+                      "params": got["params"]},
+                     {"history": {k: runs["card_reference"]["history"][k]
+                                  for k in training},
+                      "params": runs["card_reference"]["params"]})
+            loss_dev = np.abs(got["history"]["loss"].astype(np.float64)
+                              - runs["cpu"]["history"]["loss"])
+            nan_same = np.array_equal(np.isnan(got["history"]["loss"]),
+                                      np.isnan(runs["cpu"]["history"]["loss"]))
+            loss_dev = float(np.nanmax(loss_dev)) if np.isfinite(
+                loss_dev).any() else 0.0
+            if not nan_same or loss_dev > CARD_CPU_LOSS_ATOL:
+                raise AssertionError(f"{label}: card against CPU loss off by "
+                                     f"{loss_dev} (NaN where the CPU's is: "
+                                     f"{nan_same})")
+            finite = invariants.params_finite(got["params"])["ok"]
+            if attack == "nan" and aggregator != "fedavg" and not finite:
+                raise AssertionError(f"{label}: a robust aggregator served "
+                                     f"non-finite tables")
+            acc = got["history"]["acc"][got["periods"] - 1]
+            row = {"case": label, "periods": got["periods"],
+                   "card_s": got["seconds"],
+                   "reference_s": runs["card_reference"]["seconds"],
+                   "cpu_s": runs["cpu"]["seconds"],
+                   "durations_equal_clean": True,
+                   "training_bitwise_megakernel_reference": True,
+                   "card_cpu_loss_max_dev": loss_dev,
+                   "params_finite": finite,
+                   "final_acc": float(np.mean(acc)),
+                   "clean_final_acc": float(np.mean(
+                       clean["history"]["acc"][clean["periods"] - 1]))}
+            emit({"phase": "robust", **row})
+            rows.append(row)
+    return rows
+
+
+def allocd_phase() -> dict:
+    """Slice 10's path: the daemon at the paper's network (ALLOCD_CASES)
+    and at market capacity (ALLOCD_MARKET_CASES), the chaos storms, the
+    Byzantine co-training, and the CLI's replay check."""
+    from repro_torch.core import network
+    from repro_torch.fl import control_plane
+    from repro_torch.launch import allocd
+
+    # warm-up, untimed: the first asyncio loop and executor thread
+    daemon_run(control_plane.ControlPlaneConfig(
+        **ALLOCD_PAPER, intra_backend="megakernel"), network.NetworkConfig(),
+        {0: [allocd.Admit("w", 8)]}, 3)
+    out = {"paper": [allocd_paper_case(*case) for case in ALLOCD_CASES],
+           "market": [allocd_market_case(*case)
+                      for case in ALLOCD_MARKET_CASES],
+           "poison": poison_drill(), "zero_load": zero_load_drill(),
+           "storms": storm_phase(),
+           "robust": robust_phase()}
+    t0 = time.perf_counter()
+    cli = allocd.main([*ALLOCD_CLI, "--device", DEVICE])
+    if not (cli.get("replay") or {}).get("bitwise"):
+        raise AssertionError(f"allocd CLI: replay check failed: {cli}")
+    out["cli"] = {"argv": [*ALLOCD_CLI, "--device", DEVICE], "seconds":
+                  time.perf_counter() - t0, **cli}
+    emit({"phase": "allocd_cli", **out["cli"]})
+    return out
 
 
 def auction_phase() -> dict:
@@ -2404,16 +3111,19 @@ def main() -> int:
     clock["allocation_paths"] = time.perf_counter()
     paths["cotrain"] = drive_path("cotrain", cotrain_phase)
     clock["cotrain"] = time.perf_counter()
+    paths["allocd"] = drive_path("allocd", allocd_phase)
+    clock["allocd"] = time.perf_counter()
     launches = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "launches", "launches": launches, "per_path": paths})
     missing = [name for name, count in launches.items() if count < 1]
     if missing:
         raise AssertionError(f"main paths never launched {missing}")
-    missing = [name for name in COTRAIN_KERNELS
-               if not PATH_LAUNCHES["cotrain"][name]]
-    if missing:
-        raise AssertionError(f"the co-training path never launched "
-                             f"{missing}")
+    for path, kernels in (("cotrain", COTRAIN_KERNELS),
+                          ("allocd", ALLOCD_KERNELS)):
+        missing = [name for name in kernels if not PATH_LAUNCHES[path][name]]
+        if missing:
+            raise AssertionError(f"the {path} path never launched "
+                                 f"{missing}")
     draw_samplers()        # after the paths: its episodes count in no path
     clock["draw_samplers"] = time.perf_counter()
 

@@ -11,6 +11,11 @@ Layers, from the entry points down:
 
 * ``launch.serve``: the serving entry point over ``models`` (gemma3-1b,
   xlstm-1.3b), whose attention and mLSTM kernels live in ``kernels``;
+* ``launch.allocd``: the live allocation daemon over ``fl.control_plane``
+  (online admission into a fixed-capacity slot set, the period step of
+  ``fl.simulator`` each tick), checkpointed through
+  ``distributed.fault``; ``chaos`` drives it through seeded fault storms
+  and turns co-training clients Byzantine;
 * ``fl.cotrain``: the co-simulation, which paces FedAvg training of
   bigram models (``data``, ``fl.server``, ``fl.client``,
   ``fl.compression``, ``fl.aggregation``) by each period's allocation;

@@ -247,7 +247,8 @@ def _demand_slope_backend(svc: ServiceSet, lam, inner_iters: int, backend: str):
     if backend == "reference":
         return _demand_and_slope(svc, lam, inner_iters)
     if backend == "pallas":
-        b, slope = ops.dual_demand(svc.alpha, svc.t_comp, lam, iters=inner_iters)
+        b, slope = ops.dual_demand(svc.alpha, svc.t_comp, svc.mask, lam,
+                                   iters=inner_iters)
         return torch.sum(b), torch.sum(slope), b
     raise ValueError(f"unknown demand backend {backend!r}; "
                      f"expected one of {DEMAND_BACKENDS}")
@@ -285,8 +286,9 @@ def solve_lambda_newton_warm(
     svc_clean, poisoned = sanitize_service_set(svc)
     if backend == "megakernel":
         b, f, lam = ops.market_clear(
-            svc.alpha, svc.t_comp, total_bandwidth, lam_prev, iters=iters,
-            inner_iters=inner_iters, newton_inner_iters=newton_inner_iters)
+            svc.alpha, svc.t_comp, svc.mask, total_bandwidth, lam_prev,
+            iters=iters, inner_iters=inner_iters,
+            newton_inner_iters=newton_inner_iters)
     else:
         lam_hi0 = torch.amax(intra.p_max(svc))
         warm_ok = torch.logical_and(lam_prev > 0.0, lam_prev < lam_hi0)

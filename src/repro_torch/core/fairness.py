@@ -82,8 +82,8 @@ def mbdf_grid(svc: ServiceSet, prices: torch.Tensor, alpha_fair: float,
     prices = torch.as_tensor(prices, dtype=svc.alpha.dtype, device=svc.device)
     if backend == "pallas":
         return ops.mbdf_demand(svc.alpha.contiguous(),
-                               svc.t_comp.contiguous(), prices.contiguous(),
-                               alpha_fair, iters=iters)
+                               svc.t_comp.contiguous(), svc.mask.contiguous(),
+                               prices.contiguous(), alpha_fair, iters=iters)
     if backend != "reference":
         raise ValueError(f"unknown mbdf backend {backend!r}; "
                          f"expected one of {MBDF_BACKENDS}")

@@ -71,7 +71,7 @@ class StatefulPolicy(NamedTuple):
 
 def _kernel_solve(svc: ServiceSet, b: torch.Tensor, iters: int):
     """(t*, per-client split) through ``ops.intra_allocate``."""
-    return ops.intra_allocate(svc.alpha, svc.t_comp, b, iters=iters)
+    return ops.intra_allocate(svc.alpha, svc.t_comp, svc.mask, b, iters=iters)
 
 
 def _intra_impl(intra_backend: str) -> str:

@@ -8,11 +8,11 @@
 // projection onto sum b = B, and the Eq. 7 frequency of every row.
 //
 // Bound on this card: by the roofline count, operations (the service
-// tensors are 2NK floats, read once; every trip runs `newton_inner_iters`
-// bisection steps of about 5 float32 operations per (row, client)).  In
-// practice the dependent bisection steps (divides and a butterfly each)
-// and the grid-wide reduction on every trip, which the TPU kernel got for
-// free from its sequential grid, set the time.
+// tensors are 2NK floats and NK mask bytes, read once; every trip runs
+// `newton_inner_iters` bisection steps of about 5 float32 operations per
+// (row, client)).  In practice the dependent bisection steps (divides
+// and a butterfly each) and the grid-wide reduction on every trip, which
+// the TPU kernel got for free from its sequential grid, set the time.
 //
 // Design (from the parts measured in PERF.md):
 // - Lane groups (rows.cuh): L lanes own a row, R clients a lane, so a warp
@@ -124,7 +124,8 @@ __device__ __forceinline__ float2 grid_fold(float x, float y, bool use_max,
 template <int L, int R>
 __global__ void __launch_bounds__(kClearBlock)
 market_clear_kernel(const float* __restrict__ alpha,
-                    const float* __restrict__ tcomp, float b_total,
+                    const float* __restrict__ tcomp,
+                    const unsigned char* __restrict__ mask, float b_total,
                     const float* __restrict__ lam_prev_p,
                     float* __restrict__ b_out, float* __restrict__ f_out,
                     float* __restrict__ lam_out, float2* part,
@@ -143,13 +144,14 @@ market_clear_kernel(const float* __restrict__ alpha,
   unsigned tag = first_tag;  // of the next reduction
 
   float a[R], tc[R], asum, tcmax;
+  unsigned valid;
 
   // --- bracket top: lam_hi0 = max_n p_max --------------------------------
   float pm = 0.f;
   for (int base = first; base < n; base += stride) {
     const int row = base + grp;
-    load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
-                         tcmax);
+    load_group_row<L, R>(alpha, tcomp, mask, row, row < n, k, sub, a, tc,
+                         valid, asum, tcmax);
     pm = fmaxf(pm, asum > 0.f ? 1.f / fmaxf(asum, kTiny) : 0.f);
   }
   const float lam_hi0 = grid_fold(groups_max<L>(pm), 0.f, true, part, tags,
@@ -166,8 +168,8 @@ market_clear_kernel(const float* __restrict__ alpha,
     float d = 0.f, s = 0.f;
     for (int base = first; base < n; base += stride) {
       const int row = base + grp;
-      load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
-                           tcmax);
+      load_group_row<L, R>(alpha, tcomp, mask, row, row < n, k, sub, a, tc,
+                           valid, asum, tcmax);
       const float2 bs = demand_slope_group<L, R>(a, tc, asum, tcmax, lam,
                                                  newton_inner_iters);
       d += bs.x;
@@ -189,8 +191,8 @@ market_clear_kernel(const float* __restrict__ alpha,
   float total = 0.f;
   for (int base = first; base < n; base += stride) {
     const int row = base + grp;
-    load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
-                         tcmax);
+    load_group_row<L, R>(alpha, tcomp, mask, row, row < n, k, sub, a, tc,
+                         valid, asum, tcmax);
     const float b =
         demand_slope_group<L, R>(a, tc, asum, tcmax, lam, inner_iters).x;
     if (sub == 0 && row < n) b_out[row] = b;
@@ -205,10 +207,11 @@ market_clear_kernel(const float* __restrict__ alpha,
   // here, before the fold's block barrier.
   for (int base = first; base < n; base += stride) {
     const int row = base + grp;
-    load_group_row<L, R>(alpha, tcomp, row, row < n, k, sub, a, tc, asum,
-                         tcmax);
+    load_group_row<L, R>(alpha, tcomp, mask, row, row < n, k, sub, a, tc,
+                         valid, asum, tcmax);
     const float b = row < n ? b_out[row] * scale : 0.f;
-    const float f = freq_group<L, R>(a, tc, asum, tcmax, b, inner_iters);
+    const float f = freq_group<L, R>(a, tc, valid, asum, tcmax, b,
+                                     inner_iters);
     if (sub == 0 && row < n) {
       b_out[row] = b;
       f_out[row] = f;
@@ -253,7 +256,8 @@ extern "C" int market_clear_max_grid(int k, int* lanes, int* regs) {
 // + 2, which must exceed every tag an earlier launch left in them.
 // Returns the launch's CUDA error code.
 extern "C" int market_clear_launch(const float* alpha, const float* tcomp,
-                                   float b_total, const float* lam_prev,
+                                   const unsigned char* mask, float b_total,
+                                   const float* lam_prev,
                                    float* b, float* f, float* lam,
                                    void* part, unsigned* tags, int cap,
                                    unsigned first_tag, int n, int k,
@@ -267,7 +271,7 @@ extern "C" int market_clear_launch(const float* alpha, const float* tcomp,
       n < 1)
     return cudaErrorInvalidValue;
   float2* part2 = static_cast<float2*>(part);
-  void* args[] = {&alpha, &tcomp, &b_total, &lam_prev, &b, &f, &lam,
+  void* args[] = {&alpha, &tcomp, &mask, &b_total, &lam_prev, &b, &f, &lam,
                   &part2, &tags, &cap, &first_tag, &n, &k, &iters,
                   &inner_iters, &newton_inner_iters};
   const cudaError_t err = cudaLaunchCooperativeKernel(

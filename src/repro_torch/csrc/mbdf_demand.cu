@@ -34,6 +34,7 @@ template <int L, int R>
 __global__ void __launch_bounds__(kBlock)
 mbdf_demand_kernel(const float* __restrict__ alpha,
                    const float* __restrict__ tcomp,
+                   const unsigned char* __restrict__ mask,
                    const float* __restrict__ prices, float* __restrict__ out,
                    int n, int k, int m, float one_minus_a, float a_fair,
                    int iters) {
@@ -47,7 +48,9 @@ mbdf_demand_kernel(const float* __restrict__ alpha,
   const int row = live ? (int)(pair / m) : 0;
 
   float a[R], tc[R], asum, tcmax;
-  load_group_row<L, R>(alpha, tcomp, row, live, k, sub, a, tc, asum, tcmax);
+  unsigned valid;
+  load_group_row<L, R>(alpha, tcomp, mask, row, live, k, sub, a, tc, valid,
+                       asum, tcmax);
   const bool active = asum > 0.f;
   if (!__any_sync(0xffffffffu, active)) {         // uniform across the warp
     if (live && sub == 0) out[pair] = 0.f;
@@ -87,6 +90,7 @@ mbdf_demand_kernel(const float* __restrict__ alpha,
 // C entry, loaded with ctypes; the lane group comes from K (rows.cuh
 // lane_group).  Returns cudaGetLastError() after the launch.
 extern "C" int mbdf_demand_launch(const float* alpha, const float* tcomp,
+                                  const unsigned char* mask,
                                   const float* prices, float* out, int n,
                                   int k, int m, float one_minus_a,
                                   float a_fair, int iters, void* stream) {
@@ -102,7 +106,8 @@ extern "C" int mbdf_demand_launch(const float* alpha, const float* tcomp,
 #define REPRO_CASE(L, R)                                                    \
   if (lanes == L && regs == R) {                                            \
     mbdf_demand_kernel<L, R><<<(unsigned)grid, kBlock, 0, s>>>(             \
-        alpha, tcomp, prices, out, n, k, m, one_minus_a, a_fair, iters);    \
+        alpha, tcomp, mask, prices, out, n, k, m, one_minus_a, a_fair,      \
+        iters);                                                             \
     return cudaGetLastError();                                              \
   }
   REPRO_LANE_GROUPS(REPRO_CASE)

@@ -35,9 +35,16 @@ per episode.
 
 Train task: ``task="bigram"``, a (V, V) bigram-logit table fit by
 cross-entropy to ``SyntheticLM`` sequences (next-token argmax accuracy).
-``task="zoo"`` (an architecture of the zoo) and ``attack=`` are not ported
-yet and raise.  Service i's initial table comes from ``generator(seed +
-7, COTRAIN_SALT, i)``, a stream no other draw reads.
+``task="zoo"`` (an architecture of the zoo) is not ported yet and raises.
+Service i's initial table comes from ``generator(seed + 7, COTRAIN_SALT,
+i)``, a stream no other draw reads.
+
+``attack=`` (a ``chaos.clients.AttackSpec``) turns a seeded fraction of
+client slots Byzantine: the (T, N, K) plan of ``ClientChaos`` is drawn on
+the host once an episode (shared across seeds, as the reference's) and
+copied to the device, and each executed round of period t hands every
+service its (K,) row of plan[t].  The attack changes only the uploads, so
+the allocation stream, and the durations, stay those of ``run_scan``.
 """
 from __future__ import annotations
 
@@ -70,8 +77,6 @@ _EVAL_STEP = (1 << 30) + 7
 _ZOO_ITEM = ("task='zoo' trains a zoo architecture, which needs a backward "
              "through the port's models and kernels (ROADMAP Queue A item "
              "13)")
-_ATTACK_ITEM = ("attack= needs the chaos client models, not ported yet "
-                "(ROADMAP Queue A item 11)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,7 +223,7 @@ def _eval_metrics(logits: torch.Tensor, labels: torch.Tensor):
     return loss, torch.mean(hit, dim=dims)
 
 
-def _round_steps(spec: TrainSpec, methods) -> list[Callable]:
+def _round_steps(spec: TrainSpec, methods, attack=None) -> list[Callable]:
     """One round step per branch method, alike but for ``compression``."""
     kwargs = dict(local_steps=spec.local_steps, client_lr=spec.client_lr,
                   server_lr=spec.server_lr, prox_mu=spec.prox_mu,
@@ -226,7 +231,7 @@ def _round_steps(spec: TrainSpec, methods) -> list[Callable]:
                   error_feedback=spec.error_feedback,
                   aggregator=spec.aggregator, trim_frac=spec.trim_frac,
                   clip_norm=spec.clip_norm, byz_f=spec.byz_f,
-                  weight_cap=spec.weight_cap)
+                  weight_cap=spec.weight_cap, attack=attack)
     return [fl_server.make_fl_round_step(bigram_loss, compression=m,
                                          **kwargs) for m in methods]
 
@@ -259,7 +264,10 @@ def _tokens(x, device) -> torch.Tensor:
 
 def _check_spec(spec: TrainSpec, attack) -> None:
     if attack is not None:
-        raise NotImplementedError(_ATTACK_ITEM)
+        from repro_torch.chaos.clients import AttackSpec
+        if not isinstance(attack, AttackSpec):
+            raise TypeError(f"attack must be a chaos.clients.AttackSpec, "
+                            f"got {type(attack).__name__}")
     if spec.task == "zoo":
         raise NotImplementedError(_ZOO_ITEM)
     if spec.task != "bigram":
@@ -282,13 +290,14 @@ class _CotrainEpisode:
 def _train_rounds(steps: list, applied_ids, params, resid, weights,
                   n_train, n_train_host: np.ndarray,
                   trained_host: np.ndarray, data, spec: TrainSpec,
-                  k_max: int, device):
+                  k_max: int, device, byz=None):
     """Run max(n_train) rounds for every service at once: round r is one
     vmapped step over services, applied where r < n_train.  With several
     branch steps (a per-service or adaptive compression plan) every
     branch runs for every service, as the reference's vmapped switch
-    does, and each service keeps its applied branch's result.  Returns
-    (params, resid, mean training loss per service)."""
+    does, and each service keeps its applied branch's result.  ``byz``
+    (N, K): the period's Byzantine clients, the same every round.
+    Returns (params, resid, mean training loss per service)."""
     n, e, ef = len(n_train_host), spec.local_steps, spec.error_feedback
     clients = (np.arange(n, dtype=np.int64)[:, None, None] * _SVC_STRIDE
                + np.arange(k_max, dtype=np.int64)[None, :, None])
@@ -308,7 +317,8 @@ def _train_rounds(steps: list, applied_ids, params, resid, weights,
         host = data.batches(np.broadcast_to(step_ids, clients.shape),
                             spec.batch_size, clients)
         batches = {k: _tokens(v, device) for k, v in host.items()}
-        args = (params, batches, weights) + ((resid,) if ef else ())
+        args = ((params, batches, weights) + ((resid,) if ef else ())
+                + (() if byz is None else (byz,)))
         outs = [vmap(step)(*args) for step in steps]
         do = r < n_train
         params = torch.where(do[:, None, None],
@@ -323,7 +333,7 @@ def _train_rounds(steps: list, applied_ids, params, resid, weights,
 
 def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
                          net: network.NetworkConfig, arrivals, counts,
-                         sampler, data, init_params, device
+                         sampler, data, init_params, device, attack=None
                          ) -> _CotrainEpisode:
     """The period loop of one co-trained episode, up to and including the
     period in which every service finished (or ``max_periods``)."""
@@ -339,7 +349,12 @@ def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
 
     plan = _comp_plan(spec, n)
     steps = _round_steps(spec, plan.branch_methods if plan is not None
-                         else ("none",))
+                         else ("none",), attack)
+    byz_plan = None
+    if attack is not None:
+        from repro_torch.chaos.clients import ClientChaos
+        byz_plan = torch.from_numpy(ClientChaos(attack).plan(
+            cfg.max_periods, n, k_max)).to(device)
     if plan is not None:
         level_ids = torch.as_tensor(plan.level_ids, device=device)
         ratios = torch.as_tensor(plan.ratios, device=device)
@@ -415,7 +430,8 @@ def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
             n_train_host = sync[:-1].astype(np.int64)
             params, resid, train_loss = _train_rounds(
                 steps, applied_ids, params, resid, weights, n_train,
-                n_train_host, trained_host, data, spec, k_max, device)
+                n_train_host, trained_host, data, spec, k_max, device,
+                None if byz_plan is None else byz_plan[period])
             trained = trained + n_train
             trained_host += n_train_host
             ev_loss, ev_acc = _eval_metrics(params[svc_ids, ev_tokens],
@@ -530,8 +546,10 @@ def run_cotrain_scan(cfg: simulator.SimConfig, train: TrainSpec | None = None,
     ``arrivals``/``counts``/``sampler`` replace the draws as in
     ``run_scan``; ``data`` the batch stream (any object with
     ``batches(step, batch_size, client_ids)``, ``step`` an int or an array
-    of the ids' shape); ``init_params`` the (N, V, V) initial tables.  The
-    episode runs on ``device`` (default: the card).
+    of the ids' shape); ``init_params`` the (N, V, V) initial tables;
+    ``attack`` a ``chaos.clients.AttackSpec`` (Byzantine clients, see the
+    module docstring).  The episode runs on ``device`` (default: the
+    card).
     """
     train = train or TrainSpec()
     _check_spec(train, attack)
@@ -543,7 +561,7 @@ def run_cotrain_scan(cfg: simulator.SimConfig, train: TrainSpec | None = None,
                                           cfg.n_services_total)
     ep = _run_cotrain_episode(cfg, train, net, arrivals, counts, sampler,
                               data or default_data(train), init_params,
-                              device)
+                              device, attack)
     periods = len(ep.history["all_done"])
     return {
         "avg_duration": float(np.mean(ep.duration)),
@@ -596,7 +614,8 @@ def run_cotrain_batch(cfg: simulator.SimConfig,
                 else default_init_params(seed, train, n))
         episodes.append(_run_cotrain_episode(
             cfg_i, train, net, arr, cnt,
-            None if samplers is None else samplers[i], data, init, device))
+            None if samplers is None else samplers[i], data, init, device,
+            attack))
         statics.append((arr, cnt))
     duration = np.stack([ep.duration for ep in episodes]).astype(np.int32)
     rounds_done = np.stack([ep.rounds_done for ep in episodes])
@@ -640,7 +659,7 @@ def run_cotrain_fleet(cfg: simulator.SimConfig,
     _, axis, n_dev, chunk, n_chunks, padded = simulator.fleet_geometry(
         seeds, mesh, chunk_size)
     parts = [run_cotrain_batch(cfg, train, part, net, data=data,
-                               device=device)
+                               device=device, attack=attack)
              for part in simulator.fleet_chunks(seeds, chunk)]
     out = simulator._concat([{k: v for k, v in p.items() if k != "time_s"}
                              for p in parts])

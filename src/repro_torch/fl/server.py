@@ -72,15 +72,22 @@ def make_fl_round_step(loss_fn: Callable, *, local_steps: int = 1,
     ``residuals`` params-shaped with a leading (C,) axis: each client adds
     its residual to the fresh delta before compressing and keeps what the
     compressor cut; a straggler (weight 0) transmits nothing and keeps its
-    residual unchanged.  ``attack`` (a Byzantine client model) is not
-    ported yet and raises.
+    residual unchanged.
+
+    ``attack`` is an optional ``chaos.clients.AttackSpec``: the returned
+    step then takes a trailing argument ``byz``, the round's (C,) bool
+    mask of Byzantine clients, and applies the attack to their deltas and
+    weights before the aggregation (the weights are then always
+    sanitized); a straggler's residual is gated on its reported weight.
     """
     from repro_torch.fl import aggregation as fl_agg
 
     if attack is not None:
-        raise NotImplementedError(
-            "attack= needs the chaos client models, not ported yet "
-            "(ROADMAP Queue A item 11)")
+        from repro_torch.chaos import clients as chaos_clients
+        if not isinstance(attack, chaos_clients.AttackSpec):
+            raise TypeError(f"attack must be a chaos.clients.AttackSpec, "
+                            f"got {type(attack).__name__}")
+        attack_fn = chaos_clients.attack_fn(attack)
     if compression not in fl_comp.METHODS:
         raise ValueError(
             f"unknown compression method {compression!r}; "
@@ -106,8 +113,10 @@ def make_fl_round_step(loss_fn: Callable, *, local_steps: int = 1,
                                            residual)
         return delta, loss, residual
 
-    def _finish(params, deltas, losses, client_weights):
-        if weight_cap is not None:
+    def _finish(params, deltas, losses, client_weights, byz):
+        if attack is not None:
+            deltas, client_weights = attack_fn(deltas, client_weights, byz)
+        if weight_cap is not None or attack is not None:
             client_weights, n_bad_w = sanitize_weights(client_weights,
                                                        weight_cap)
         else:
@@ -126,12 +135,13 @@ def make_fl_round_step(loss_fn: Callable, *, local_steps: int = 1,
                             "participating": torch.sum(client_weights > 0),
                             "nonfinite_weights": n_bad_w}
 
-    def round_step(params, client_batches, client_weights):
+    def round_step(params, client_batches, client_weights, byz=None):
         deltas, losses = vmap(one_client, in_dims=(None, 0))(
             params, client_batches)
-        return _finish(params, deltas, losses, client_weights)
+        return _finish(params, deltas, losses, client_weights, byz)
 
-    def round_step_ef(params, client_batches, client_weights, residuals):
+    def round_step_ef(params, client_batches, client_weights, residuals,
+                      byz=None):
         deltas, losses, new_resid = vmap(one_client_ef, in_dims=(None, 0, 0))(
             params, client_batches, residuals)
         part = client_weights > 0
@@ -140,7 +150,8 @@ def make_fl_round_step(loss_fn: Callable, *, local_steps: int = 1,
                 part.reshape((-1,) + (1,) * (new.dim() - 1)), new,
                 old.to(new.dtype)),
             new_resid, residuals)
-        new_params, metrics = _finish(params, deltas, losses, client_weights)
+        new_params, metrics = _finish(params, deltas, losses, client_weights,
+                                      byz)
         return new_params, metrics, resid_out
 
     return round_step_ef if error_feedback else round_step

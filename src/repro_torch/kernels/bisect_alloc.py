@@ -9,9 +9,11 @@ repeats its arithmetic in PyTorch ops.  The kernel picks its speculation
 depth (the trips it takes at once, with the bits of one at a time) from
 N, K and the card's SM count at launch; ``bisect_alloc_plan`` reports it.
 
-Convention: a client slot is valid iff alpha > 0 (masked slots carry
-alpha = 0); the valid-masked gap is 0, and every trip clamps the
-denominator at TINY.
+Convention: a row's clients are the slots its mask (the service set's)
+marks, whatever their alpha, as in ``core/intra.py`` (the TPU kernel takes
+alpha > 0 as a client's mark instead, which leaves a client with no
+transmission load out of max t^C); alpha and the gap are 0 elsewhere, and
+every trip clamps the denominator at TINY.
 """
 from __future__ import annotations
 
@@ -29,22 +31,21 @@ _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 
 
 def bisect_alloc_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
-                       b: torch.Tensor, iters: int = 48
+                       mask: torch.Tensor, b: torch.Tensor, iters: int = 48
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel -> (t_star (N,), b_alloc (N, K))."""
-    valid = alpha > 0.0
+    alpha = torch.where(mask, alpha, 0.0)
     b = b[:, None]
-    tcmax = torch.amax(torch.where(valid, t_comp, NEG_INF), dim=1, keepdim=True)
+    tcmax = torch.amax(torch.where(mask, t_comp, NEG_INF), dim=1, keepdim=True)
     asum = torch.sum(alpha, dim=1, keepdim=True)
-    gap = torch.where(valid, tcmax - t_comp, 0.0)
+    gap = torch.where(mask, tcmax - t_comp, 0.0)
     lo, hi = _bisect.bisect_plain(
         torch.zeros_like(asum), asum / torch.clamp(b, min=TINY), iters,
-        lambda mid: torch.sum(torch.where(
-            valid, alpha / torch.clamp(mid + gap, min=TINY), 0.0),
-            dim=1, keepdim=True) - b > 0.0)
+        lambda mid: torch.sum(alpha / torch.clamp(mid + gap, min=TINY),
+                              dim=1, keepdim=True) - b > 0.0)
     u = 0.5 * (lo + hi)
     t_star = tcmax + u
-    raw = torch.where(valid, alpha / torch.clamp(u + gap, min=TINY), 0.0)
+    raw = alpha / torch.clamp(u + gap, min=TINY)
     total = torch.clamp(torch.sum(raw, dim=1, keepdim=True), min=TINY)
     b_alloc = raw * (b / total)
     t_star = torch.where(b > 0.0, t_star, 1.0 / TINY)
@@ -56,7 +57,7 @@ def _lib():
     lib = _build.library("bisect_alloc")
     plan, launch = lib.bisect_alloc_plan, lib.bisect_alloc_launch
     plan.argtypes = [_c_int] * 4
-    launch.argtypes = [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p]
+    launch.argtypes = [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p]
     plan.restype = launch.restype = _c_int
     return plan, launch
 
@@ -74,7 +75,8 @@ def bisect_alloc_plan(n: int, k: int, depth: int = 0,
 
 
 def bisect_alloc_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
-                      b: torch.Tensor, iters: int = 48, *, depth: int = 0
+                      mask: torch.Tensor, b: torch.Tensor, iters: int = 48, *,
+                      depth: int = 0
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream.  Inputs must already be
     validated (``ops.intra_allocate`` does it).  ``depth`` 0 lets the
@@ -84,8 +86,8 @@ def bisect_alloc_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     buf = torch.empty((n * (k + 1),), dtype=torch.float32, device=alpha.device)
     t_star, b_alloc = buf[:n], buf[n:].view(n, k)
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
-    status = _lib()[1](alpha.data_ptr(), t_comp.data_ptr(), b.data_ptr(),
-                       t_star.data_ptr(), b_alloc.data_ptr(), n, k, iters,
-                       depth, _bisect.sm_count(alpha.device), stream)
+    status = _lib()[1](alpha.data_ptr(), t_comp.data_ptr(), mask.data_ptr(),
+                       b.data_ptr(), t_star.data_ptr(), b_alloc.data_ptr(), n,
+                       k, iters, depth, _bisect.sm_count(alpha.device), stream)
     _build.check(status, "bisect_alloc")
     return t_star, b_alloc

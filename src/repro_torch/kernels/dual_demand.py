@@ -5,7 +5,8 @@ For every service row at price lam, bisect the Eq. 14 stationarity
 condition (1 + f) * sum_k alpha_k / (1 - t^C_k f)^2 = 1 / lam on
 [0, F_CEIL / max t^C], opt out (f = 0) at lam >= p_max = 1/sum alpha, and
 emit the demand b = sum alpha f / (1 - t^C f) together with its Lemma 1 /
-Eqns. 9-10 closed-form slope db/dlam.  The CUDA kernel is
+Eqns. 9-10 closed-form slope db/dlam.  A row's clients are the slots its
+mask marks (``bisect_alloc``'s convention).  The CUDA kernel is
 ``csrc/dual_demand.cu`` (row body ``demand_slope_group`` in
 ``csrc/rows.cuh``, shared with ``market_clear``); ``dual_demand_plain``
 repeats its arithmetic in PyTorch.  The kernel picks its speculation depth
@@ -28,14 +29,20 @@ F_CEIL = 1.0 - 1e-6  # stay strictly inside the 1 - tC*f > 0 region (Eq. 14)
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 
 
+def masked(alpha: torch.Tensor, t_comp: torch.Tensor, mask: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(alpha, t^C) with 0 outside the mask, as the kernels load a row."""
+    return torch.where(mask, alpha, 0.0), torch.where(mask, t_comp, 0.0)
+
+
 def demand_slope_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
-                       lam: torch.Tensor, iters: int
+                       mask: torch.Tensor, lam: torch.Tensor, iters: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row (demand, slope) with ``lam`` a scalar or an (N, 1) column;
-    returns two (N, 1) columns.  The body ``market_clear_plain`` shares."""
-    valid = alpha > 0.0
+    returns two (N, 1) columns.  The body ``market_clear_plain`` shares;
+    ``alpha`` and ``t_comp`` are already ``masked``."""
     asum = torch.sum(alpha, dim=1, keepdim=True)
-    tcmax = torch.amax(torch.where(valid, t_comp, NEG_INF), dim=1, keepdim=True)
+    tcmax = torch.amax(torch.where(mask, t_comp, NEG_INF), dim=1, keepdim=True)
     active = asum > 0.0
     f_hi = torch.where(active, F_CEIL / torch.clamp(tcmax, min=TINY), 0.0)
     target = 1.0 / torch.clamp(lam, min=TINY)
@@ -66,25 +73,27 @@ def demand_slope_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
 
 
 def dual_demand_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
-                      lam: torch.Tensor, iters: int = 48
+                      mask: torch.Tensor, lam: torch.Tensor, iters: int = 48
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel -> (b (N,), db/dlam (N,))."""
     lam = torch.broadcast_to(lam, (alpha.shape[0],))[:, None]
-    b, slope = demand_slope_plain(alpha, t_comp, lam, iters)
+    b, slope = demand_slope_plain(*masked(alpha, t_comp, mask), mask, lam,
+                                  iters)
     return b[:, 0], slope[:, 0]
 
 
 @functools.cache
 def _lib():
     fn = _build.library("dual_demand").dual_demand_launch
-    fn.argtypes = ([_c_void_p] * 3 + [_c_int] + [_c_void_p] * 2
+    fn.argtypes = ([_c_void_p] * 4 + [_c_int] + [_c_void_p] * 2
                    + [_c_int] * 5 + [_c_void_p])
     fn.restype = _c_int
     return fn
 
 
 def dual_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
-                     lam: torch.Tensor, iters: int = 48, *, depth: int = 0
+                     mask: torch.Tensor, lam: torch.Tensor, iters: int = 48,
+                     *, depth: int = 0
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream.  ``lam`` is a 0-d or
     (N,) float32 tensor on the same device; inputs must already be
@@ -95,8 +104,9 @@ def dual_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     b, slope = buf[:n], buf[n:]
     lam_stride = 0 if lam.ndim == 0 else 1
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
-    status = _lib()(alpha.data_ptr(), t_comp.data_ptr(), lam.data_ptr(),
-                    lam_stride, b.data_ptr(), slope.data_ptr(), n, k, iters,
-                    depth, _bisect.sm_count(alpha.device), stream)
+    status = _lib()(alpha.data_ptr(), t_comp.data_ptr(), mask.data_ptr(),
+                    lam.data_ptr(), lam_stride, b.data_ptr(),
+                    slope.data_ptr(), n, k, iters, depth,
+                    _bisect.sm_count(alpha.device), stream)
     _build.check(status, "dual_demand")
     return b, slope

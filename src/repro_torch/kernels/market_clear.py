@@ -18,30 +18,33 @@ service row at every price of its (ascending) bid grid: per (row, price) a
 bisection of q(f) = [(1 - a) + a / (1 + f)] * f*'(b) = p on
 [0, F_CEIL / max t^C], the opt-out at p >= p_max, and the Eq. 7 bandwidth
 at the root.  The CUDA kernel is ``csrc/mbdf_demand.cu``;
-``mbdf_demand_plain`` repeats its arithmetic in PyTorch ops.
+``mbdf_demand_plain`` repeats its arithmetic in PyTorch ops.  A row's
+clients are the slots its mask marks in both (``bisect_alloc``'s
+convention).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dual_demand import (F_CEIL, NEG_INF, TINY,
-                                             demand_slope_plain)
+                                             demand_slope_plain, masked)
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def freq_plain(alpha: torch.Tensor, t_comp: torch.Tensor, b: torch.Tensor,
-               iters: int) -> torch.Tensor:
-    """Eq. 7 round time -> frequency per row at bandwidth b (N, 1) -> (N, 1).
-    The gap is masked to 1.0 (not 0 as in ``bisect_alloc``)."""
-    valid = alpha > 0.0
+def freq_plain(alpha: torch.Tensor, t_comp: torch.Tensor, mask: torch.Tensor,
+               b: torch.Tensor, iters: int) -> torch.Tensor:
+    """Eq. 7 round time -> frequency per row at bandwidth b (N, 1) -> (N, 1),
+    ``alpha`` and ``t_comp`` already ``masked``.  The gap is masked to 1.0
+    (not 0 as in ``bisect_alloc``)."""
     asum = torch.sum(alpha, dim=1, keepdim=True)
-    tcmax = torch.amax(torch.where(valid, t_comp, NEG_INF), dim=1, keepdim=True)
-    gap = torch.where(valid, tcmax - t_comp, 1.0)
+    tcmax = torch.amax(torch.where(mask, t_comp, NEG_INF), dim=1, keepdim=True)
+    gap = torch.where(mask, tcmax - t_comp, 1.0)
     lo = torch.zeros_like(asum)
     hi = asum / torch.clamp(b, min=TINY)
     for _ in range(iters):
@@ -54,11 +57,12 @@ def freq_plain(alpha: torch.Tensor, t_comp: torch.Tensor, b: torch.Tensor,
 
 
 def market_clear_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
-                       b_total: float, lam_prev: torch.Tensor, *,
-                       iters: int = 6, inner_iters: int = 48,
-                       newton_inner_iters: int = 24
+                       mask: torch.Tensor, b_total: float,
+                       lam_prev: torch.Tensor, *, iters: int = 6,
+                       inner_iters: int = 48, newton_inner_iters: int = 24
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel -> (b (N,), f (N,), lam ())."""
+    alpha, t_comp = masked(alpha, t_comp, mask)
     asum = torch.sum(alpha, dim=1)
     p = torch.where(asum > 0.0, 1.0 / torch.clamp(asum, min=TINY), 0.0)
     lam_hi0 = torch.amax(p)
@@ -68,7 +72,8 @@ def market_clear_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
     lam = torch.where(warm_ok, lam_prev, 0.5 * lam_hi0)
     lo, hi = torch.zeros_like(lam_hi0), lam_hi0
     for _ in range(iters):
-        b_t, s_t = demand_slope_plain(alpha, t_comp, lam, newton_inner_iters)
+        b_t, s_t = demand_slope_plain(alpha, t_comp, mask, lam,
+                                      newton_inner_iters)
         resid = torch.sum(b_t) - b_total
         slope = torch.sum(s_t)
         lo = torch.where(resid > 0, lam, lo)
@@ -77,9 +82,9 @@ def market_clear_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
         lam_newton = lam - step
         in_bracket = torch.logical_and(lam_newton >= lo, lam_newton <= hi)
         lam = torch.where(in_bracket, lam_newton, 0.5 * (lo + hi))
-    b, _ = demand_slope_plain(alpha, t_comp, lam, inner_iters)
+    b, _ = demand_slope_plain(alpha, t_comp, mask, lam, inner_iters)
     b = b * (b_total / torch.clamp(torch.sum(b), min=TINY))
-    f = freq_plain(alpha, t_comp, b, inner_iters)
+    f = freq_plain(alpha, t_comp, mask, b, inner_iters)
     return b[:, 0], f[:, 0], lam
 
 
@@ -87,7 +92,7 @@ def market_clear_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
 def _lib():
     lib = _build.library("market_clear")
     fn = lib.market_clear_launch
-    fn.argtypes = ([_c_void_p] * 2 + [_c_float] + [_c_void_p] * 6
+    fn.argtypes = ([_c_void_p] * 3 + [_c_float] + [_c_void_p] * 6
                    + [_c_int, ctypes.c_uint] + [_c_int] * 6 + [_c_void_p])
     fn.restype = _c_int
     grid = lib.market_clear_max_grid
@@ -115,27 +120,33 @@ class _Mailboxes:
     """Per device: the kernel's mailbox slots (2 x cap (demand, slope)
     partials and 2 x cap tags, zeroed once) and the next launch's first
     tag.  Tags only grow, so no slot ever holds a tag a later launch waits
-    for; on wrap-around the tags are zeroed again.  One stream at a time,
-    like decode_attention's counters, and no graph capture: a replayed
-    launch would reuse its tags, which its first run left in the slots."""
+    for; on wrap-around the tags are zeroed again.  ``take`` hands out the
+    slots and a tag range under a lock, so launches from several host
+    threads (the allocation daemon's executor) never share a tag range;
+    the launches must still go to one stream, one after another, like
+    decode_attention's counters, and no graph capture: a replayed launch
+    would reuse its tags, which its first run left in the slots."""
 
     def __init__(self):
         self.slots: dict[int, tuple[torch.Tensor, int]] = {}
         self.next_tag: dict[int, int] = {}
+        self._lock = threading.Lock()
 
     def take(self, device: torch.device, cap: int, folds: int):
         idx = device.index
-        buf, have = self.slots.get(idx, (None, 0))
-        if have < cap:
-            # 2 cap float2 partials, then 2 cap uint32 tags
-            buf = torch.zeros((6 * cap,), dtype=torch.int32, device=device)
-            self.slots[idx] = (buf, cap)
-            have = cap
-        tag = self.next_tag.get(idx, 1)
-        if tag + folds >= 1 << 32:
-            buf[4 * have:].zero_()
-            tag = 1
-        self.next_tag[idx] = tag + folds
+        with self._lock:
+            buf, have = self.slots.get(idx, (None, 0))
+            if have < cap:
+                # 2 cap float2 partials, then 2 cap uint32 tags
+                buf = torch.zeros((6 * cap,), dtype=torch.int32,
+                                  device=device)
+                self.slots[idx] = (buf, cap)
+                have = cap
+            tag = self.next_tag.get(idx, 1)
+            if tag + folds >= 1 << 32:
+                buf[4 * have:].zero_()
+                tag = 1
+            self.next_tag[idx] = tag + folds
         return buf.data_ptr(), buf.data_ptr() + 16 * have, have, tag
 
 
@@ -143,9 +154,9 @@ _MAILBOXES = _Mailboxes()
 
 
 def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
-                      b_total: float, lam_prev: torch.Tensor, *,
-                      iters: int = 6, inner_iters: int = 48,
-                      newton_inner_iters: int = 24
+                      mask: torch.Tensor, b_total: float,
+                      lam_prev: torch.Tensor, *, iters: int = 6,
+                      inner_iters: int = 48, newton_inner_iters: int = 24
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One cooperative launch on the current stream, which must not be
     capturing a graph (``_Mailboxes``).  ``lam_prev`` is a 0-d float32
@@ -166,10 +177,11 @@ def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     out = torch.empty((2 * n + 1,), dtype=torch.float32, device=dev)
     b, f, lam = out[:n], out[n:2 * n], out[2 * n]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _lib()[0](alpha.data_ptr(), t_comp.data_ptr(), float(b_total),
-                       lam_prev.data_ptr(), b.data_ptr(), f.data_ptr(),
-                       lam.data_ptr(), part, tags, cap, tag, n, k, iters,
-                       inner_iters, newton_inner_iters, grid, stream)
+    status = _lib()[0](alpha.data_ptr(), t_comp.data_ptr(), mask.data_ptr(),
+                       float(b_total), lam_prev.data_ptr(), b.data_ptr(),
+                       f.data_ptr(), lam.data_ptr(), part, tags, cap, tag, n,
+                       k, iters, inner_iters, newton_inner_iters, grid,
+                       stream)
     _build.check(status, "market_clear")
     return b, f, lam
 
@@ -179,16 +191,16 @@ def market_clear_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mbdf_demand_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
-                      prices: torch.Tensor, alpha_fair: float,
-                      iters: int = 48) -> torch.Tensor:
+                      mask: torch.Tensor, prices: torch.Tensor,
+                      alpha_fair: float, iters: int = 48) -> torch.Tensor:
     """Plain PyTorch version of the kernel -> demands (N, M).
 
     A Python scalar over a tensor is a reciprocal and a product in PyTorch,
     so the true divisions of the kernel (and of the TPU kernel) divide a
     filled tensor instead."""
-    valid = alpha > 0.0
+    alpha, t_comp = masked(alpha, t_comp, mask)
     asum = torch.sum(alpha, dim=1, keepdim=True)                  # (N, 1)
-    tcmax = torch.amax(torch.where(valid, t_comp, NEG_INF), dim=1, keepdim=True)
+    tcmax = torch.amax(torch.where(mask, t_comp, NEG_INF), dim=1, keepdim=True)
     active = asum > 0.0
     f_hi = torch.where(active, torch.full_like(tcmax, F_CEIL)
                        / torch.clamp(tcmax, min=TINY), 0.0)
@@ -214,15 +226,15 @@ def mbdf_demand_plain(alpha: torch.Tensor, t_comp: torch.Tensor,
 @functools.cache
 def _mbdf_lib():
     fn = _build.library("mbdf_demand").mbdf_demand_launch
-    fn.argtypes = ([_c_void_p] * 4 + [_c_int] * 3 + [_c_float] * 2
+    fn.argtypes = ([_c_void_p] * 5 + [_c_int] * 3 + [_c_float] * 2
                    + [_c_int, _c_void_p])
     fn.restype = _c_int
     return fn
 
 
 def mbdf_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
-                     prices: torch.Tensor, alpha_fair: float,
-                     iters: int = 48) -> torch.Tensor:
+                     mask: torch.Tensor, prices: torch.Tensor,
+                     alpha_fair: float, iters: int = 48) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Inputs must already be
     validated (``ops.mbdf_demand`` does it)."""
     n, k = alpha.shape
@@ -230,7 +242,7 @@ def mbdf_demand_cuda(alpha: torch.Tensor, t_comp: torch.Tensor,
     out = torch.empty((n, m), dtype=torch.float32, device=alpha.device)
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
     status = _mbdf_lib()(alpha.data_ptr(), t_comp.data_ptr(),
-                         prices.data_ptr(), out.data_ptr(), n, k, m,
-                         1.0 - alpha_fair, alpha_fair, iters, stream)
+                         mask.data_ptr(), prices.data_ptr(), out.data_ptr(),
+                         n, k, m, 1.0 - alpha_fair, alpha_fair, iters, stream)
     _build.check(status, "mbdf_demand")
     return out

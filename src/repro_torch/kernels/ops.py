@@ -45,14 +45,18 @@ def reset_launches() -> None:
 
 
 def _on_cuda(name: str, alpha: torch.Tensor, t_comp: torch.Tensor,
-             grid: torch.Tensor | None = None,
+             mask: torch.Tensor, grid: torch.Tensor | None = None,
              **vectors: torch.Tensor) -> bool:
     """Validate a kernel's inputs; True for the CUDA path, False for CPU.
-    ``vectors`` are scalars or (N,); ``grid`` an (N, M) matrix."""
-    if alpha.ndim != 2 or t_comp.shape != alpha.shape:
-        raise ValueError(f"{name}: alpha and t_comp must share one (N, K) "
-                         f"shape, got {tuple(alpha.shape)} and "
-                         f"{tuple(t_comp.shape)}")
+    ``mask`` (bool) marks each row's clients; ``vectors`` are scalars or
+    (N,); ``grid`` an (N, M) matrix."""
+    if (alpha.ndim != 2 or t_comp.shape != alpha.shape
+            or mask.shape != alpha.shape):
+        raise ValueError(f"{name}: alpha, t_comp and mask must share one "
+                         f"(N, K) shape, got {tuple(alpha.shape)}, "
+                         f"{tuple(t_comp.shape)} and {tuple(mask.shape)}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"{name}: mask must be bool, got {mask.dtype}")
     n, k = alpha.shape
     if n < 1 or not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: need N >= 1 and 1 <= K <= {MAX_K}, got "
@@ -67,6 +71,7 @@ def _on_cuda(name: str, alpha: torch.Tensor, t_comp: torch.Tensor,
     for key, x in tensors.items():
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32, got {x.dtype}")
+    for key, x in {**tensors, "mask": mask}.items():
         if x.device != alpha.device:
             raise ValueError(f"{name}: {key} is on {x.device}, alpha on "
                              f"{alpha.device}")
@@ -83,32 +88,37 @@ def _on_cuda(name: str, alpha: torch.Tensor, t_comp: torch.Tensor,
     raise ValueError(f"{name}: unsupported device {alpha.device}")
 
 
-def intra_allocate(alpha: torch.Tensor, t_comp: torch.Tensor, b: torch.Tensor,
-                   *, iters: int = 48) -> tuple[torch.Tensor, torch.Tensor]:
-    """Eq. 7 per service -> (t* (N,), per-client split (N, K))."""
+def intra_allocate(alpha: torch.Tensor, t_comp: torch.Tensor,
+                   mask: torch.Tensor, b: torch.Tensor, *, iters: int = 48
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 7 per service -> (t* (N,), per-client split (N, K)).  In this
+    and the other allocation wrappers ``mask`` marks each row's clients
+    (``ServiceSet.mask``), whatever their alpha."""
     if b.ndim != 1:
         raise ValueError(f"intra_allocate: b must be (N,), got {tuple(b.shape)}")
-    if _on_cuda("intra_allocate", alpha, t_comp, b=b):
-        out = bisect_alloc_cuda(alpha, t_comp, b, iters)
+    if _on_cuda("intra_allocate", alpha, t_comp, mask, b=b):
+        out = bisect_alloc_cuda(alpha, t_comp, mask, b, iters)
         LAUNCHES["bisect_alloc"] += 1
         return out
-    return bisect_alloc_plain(alpha, t_comp, b, iters)
+    return bisect_alloc_plain(alpha, t_comp, mask, b, iters)
 
 
-def dual_demand(alpha: torch.Tensor, t_comp: torch.Tensor, lam: torch.Tensor,
-                *, iters: int = 48) -> tuple[torch.Tensor, torch.Tensor]:
+def dual_demand(alpha: torch.Tensor, t_comp: torch.Tensor, mask: torch.Tensor,
+                lam: torch.Tensor, *, iters: int = 48
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-service demand b_n(lam) and slope db_n/dlam -> ((N,), (N,)).
     ``lam`` is a 0-d or (N,) float32 tensor on the tensors' device."""
-    if _on_cuda("dual_demand", alpha, t_comp, lam=lam):
-        out = dual_demand_cuda(alpha, t_comp, lam, iters)
+    if _on_cuda("dual_demand", alpha, t_comp, mask, lam=lam):
+        out = dual_demand_cuda(alpha, t_comp, mask, lam, iters)
         LAUNCHES["dual_demand"] += 1
         return out
-    return dual_demand_plain(alpha, t_comp, lam, iters)
+    return dual_demand_plain(alpha, t_comp, mask, lam, iters)
 
 
-def market_clear(alpha: torch.Tensor, t_comp: torch.Tensor, b_total: float,
-                 lam_prev: torch.Tensor, *, iters: int = 6,
-                 inner_iters: int = 48, newton_inner_iters: int = 24
+def market_clear(alpha: torch.Tensor, t_comp: torch.Tensor,
+                 mask: torch.Tensor, b_total: float, lam_prev: torch.Tensor,
+                 *, iters: int = 6, inner_iters: int = 48,
+                 newton_inner_iters: int = 24
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole safeguarded-Newton market clear -> (b (N,), f (N,), lam ()).
     ``lam_prev`` is a 0-d float32 tensor on the tensors' device (<= 0 seeds
@@ -120,25 +130,27 @@ def market_clear(alpha: torch.Tensor, t_comp: torch.Tensor, b_total: float,
         raise ValueError("market_clear: lam_prev must be a 0-d tensor")
     kwargs = dict(iters=iters, inner_iters=inner_iters,
                   newton_inner_iters=newton_inner_iters)
-    if _on_cuda("market_clear", alpha, t_comp, lam_prev=lam_prev):
-        out = market_clear_cuda(alpha, t_comp, float(b_total), lam_prev,
-                                **kwargs)
+    if _on_cuda("market_clear", alpha, t_comp, mask, lam_prev=lam_prev):
+        out = market_clear_cuda(alpha, t_comp, mask, float(b_total),
+                                lam_prev, **kwargs)
         LAUNCHES["market_clear"] += 1
         return out
-    return market_clear_plain(alpha, t_comp, float(b_total), lam_prev, **kwargs)
+    return market_clear_plain(alpha, t_comp, mask, float(b_total), lam_prev,
+                              **kwargs)
 
 
-def mbdf_demand(alpha: torch.Tensor, t_comp: torch.Tensor,
+def mbdf_demand(alpha: torch.Tensor, t_comp: torch.Tensor, mask: torch.Tensor,
                 prices: torch.Tensor, alpha_fair: float, *,
                 iters: int = 48) -> torch.Tensor:
     """Modified bandwidth demand d_n(p_m) on an (N, M) price grid (ascending
     in m) -> (N, M)."""
-    if _on_cuda("mbdf_demand", alpha, t_comp, grid=prices):
-        out = mbdf_demand_cuda(alpha, t_comp, prices, float(alpha_fair),
-                               iters)
+    if _on_cuda("mbdf_demand", alpha, t_comp, mask, grid=prices):
+        out = mbdf_demand_cuda(alpha, t_comp, mask, prices,
+                               float(alpha_fair), iters)
         LAUNCHES["mbdf_demand"] += 1
         return out
-    return mbdf_demand_plain(alpha, t_comp, prices, float(alpha_fair), iters)
+    return mbdf_demand_plain(alpha, t_comp, mask, prices, float(alpha_fair),
+                             iters)
 
 
 def _check_heads(name: str, tensors: dict, d: int) -> bool:

@@ -103,7 +103,7 @@ def test_mbdf_demand_plain_matches_pallas_and_grid(n, k, alpha_fair):
                                 interpret=True)
     want_grid = j_fairness.mbdf_grid(j, prices, alpha_fair)
     p = torch.as_tensor(np.array(prices))
-    got = ops.mbdf_demand(t.alpha, t.t_comp, p, alpha_fair)
+    got = ops.mbdf_demand(t.alpha, t.t_comp, t.mask, p, alpha_fair)
     _close(got, want_kernel, **DEMAND_TOL)
     _close(got, want_grid, **DEMAND_TOL)
     inactive = ~np.asarray(j.mask).any(1)
@@ -119,15 +119,15 @@ def test_mbdf_demand_wrapper_dispatch_and_checks():
     _, t = _pair(3, 6, 9)
     p = torch.rand(6, 4)
     ops.reset_launches()
-    assert torch.equal(ops.mbdf_demand(t.alpha, t.t_comp, p, 0.5),
-                       mbdf_demand_plain(t.alpha, t.t_comp, p, 0.5))
+    assert torch.equal(ops.mbdf_demand(t.alpha, t.t_comp, t.mask, p, 0.5),
+                       mbdf_demand_plain(t.alpha, t.t_comp, t.mask, p, 0.5))
     assert ops.LAUNCHES["mbdf_demand"] == 0
     assert "mbdf_demand" in ops.KERNEL_NAMES
     for bad, error in [(p[:5], ValueError), (p.double(), TypeError),
                        (p.t().contiguous().t(), ValueError),
                        (p[:, :0], ValueError)]:
         with pytest.raises(error):
-            ops.mbdf_demand(t.alpha, t.t_comp, bad, 0.5)
+            ops.mbdf_demand(t.alpha, t.t_comp, t.mask, bad, 0.5)
     with pytest.raises(ValueError, match="mbdf backend"):
         fairness.mbdf_grid(t, p, 0.5, backend="nope")
 

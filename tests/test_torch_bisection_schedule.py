@@ -47,6 +47,7 @@ def _rows(k, seed=0, n=13):
     t_comp = rng.uniform(0.01, 0.06, (n, k)).astype(np.float32)
     mask = np.arange(k)[None, :] < rng.integers(1, k + 1, (n, 1))
     mask[3] = False
+    keep = torch.from_numpy(mask)
     alpha = torch.from_numpy(np.where(mask, alpha, 0.0).astype(np.float32))
     t_comp = torch.from_numpy(np.where(mask, t_comp, 0.0).astype(np.float32))
     b = torch.from_numpy(rng.uniform(0.2, 4.0, n).astype(np.float32))
@@ -55,7 +56,7 @@ def _rows(k, seed=0, n=13):
     p_max = torch.where(asum > 0, 1.0 / torch.clamp(asum, min=1e-30), 0.0)
     u = torch.from_numpy(rng.uniform(0.1, 0.9, n).astype(np.float32))
     u[9] = 1.15
-    return alpha, t_comp, b, (p_max * u)[:, None]
+    return alpha, t_comp, keep, b, (p_max * u)[:, None]
 
 
 def _bits(*xs):
@@ -69,10 +70,10 @@ SCHEDULE_K = [1, 7, 45, 64]
 @pytest.mark.parametrize("iters", SCHEDULE_ITERS)
 @pytest.mark.parametrize("k", SCHEDULE_K)
 def test_schedule_gives_bisect_alloc_plain_bits(k, iters, monkeypatch):
-    alpha, t_comp, b, _ = _rows(k)
-    want = bisect_alloc_plain(alpha, t_comp, b, iters)
+    alpha, t_comp, mask, b, _ = _rows(k)
+    want = bisect_alloc_plain(alpha, t_comp, mask, b, iters)
     monkeypatch.setattr(_bisect, "bisect_plain", speculative_bisect)
-    got = bisect_alloc_plain(alpha, t_comp, b, iters)
+    got = bisect_alloc_plain(alpha, t_comp, mask, b, iters)
     for g, w in zip(_bits(*got), _bits(*want)):
         assert torch.equal(g, w)
     assert got[0][6] == 1e30 and not got[1][6].any()   # the b = 0 row
@@ -82,10 +83,10 @@ def test_schedule_gives_bisect_alloc_plain_bits(k, iters, monkeypatch):
 @pytest.mark.parametrize("iters", SCHEDULE_ITERS)
 @pytest.mark.parametrize("k", SCHEDULE_K)
 def test_schedule_gives_demand_slope_plain_bits(k, iters, monkeypatch):
-    alpha, t_comp, _, lam = _rows(k, seed=1)
-    want = demand_slope_plain(alpha, t_comp, lam, iters)
+    alpha, t_comp, mask, _, lam = _rows(k, seed=1)
+    want = demand_slope_plain(alpha, t_comp, mask, lam, iters)
     monkeypatch.setattr(_bisect, "bisect_plain", speculative_bisect)
-    got = demand_slope_plain(alpha, t_comp, lam, iters)
+    got = demand_slope_plain(alpha, t_comp, mask, lam, iters)
     for g, w in zip(_bits(*got), _bits(*want)):
         assert torch.equal(g, w)
     assert got[0][3] == 0 and got[1][3] == 0            # the inactive row
@@ -98,11 +99,11 @@ def test_rows_without_trips_skip_them_exactly(iters, row):
     """A warp skips its trips where no row needs them: B1's inactive rows
     (row 3) and rows with b = 0 (row 6), B2's inactive rows.  Such rows'
     outputs at 0 trips are the bits of the full count."""
-    alpha, t_comp, b, lam = _rows(45)
-    full = bisect_alloc_plain(alpha, t_comp, b, iters)
-    none = bisect_alloc_plain(alpha, t_comp, b, 0)
+    alpha, t_comp, mask, b, lam = _rows(45)
+    full = bisect_alloc_plain(alpha, t_comp, mask, b, iters)
+    none = bisect_alloc_plain(alpha, t_comp, mask, b, 0)
     for g, w in zip(_bits(full[0][row:row + 1], full[1][row]),
                     _bits(none[0][row:row + 1], none[1][row])):
         assert torch.equal(g, w)
-    full = demand_slope_plain(alpha, t_comp, lam, iters)
+    full = demand_slope_plain(alpha, t_comp, mask, lam, iters)
     assert float(full[0][3]) == 0.0 and float(full[1][3]) == 0.0

@@ -245,10 +245,11 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
         cotrain.run_cotrain_scan(cfg, cotrain.TrainSpec(task="zoo"), NET,
                                  device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # attack= is ported: anything but a chaos.clients.AttackSpec raises
+    with pytest.raises(TypeError, match="AttackSpec"):
         cotrain.run_cotrain_scan(cfg, cotrain.TrainSpec(**TRAIN), NET,
                                  attack=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="AttackSpec"):
         server.make_fl_round_step(cotrain.bigram_loss, attack=object())
     with pytest.raises(NotImplementedError, match="item 12"):
         cotrain.run_cotrain_fleet(cfg, cotrain.TrainSpec(**TRAIN), [0], NET,

@@ -71,7 +71,7 @@ def test_bisect_alloc_plain_matches_pallas(n, k):
     jt, jb = j_bisect_alloc(jnp.asarray(a), jnp.asarray(t), jnp.asarray(b),
                             interpret=True)
     tt, tb = ops.intra_allocate(torch.as_tensor(a), torch.as_tensor(t),
-                                torch.as_tensor(b))
+                                torch.as_tensor(m), torch.as_tensor(b))
     np.testing.assert_allclose(_np(tt), np.asarray(jt), rtol=1e-4)
     np.testing.assert_allclose(_np(tb), np.asarray(jb), rtol=1e-3, atol=1e-4)
 
@@ -85,7 +85,7 @@ def test_dual_demand_plain_matches_pallas(n, k, per_row):
     jb, js = j_dual_demand(jnp.asarray(a), jnp.asarray(t), jnp.asarray(lam),
                            interpret=True)
     tb, ts = ops.dual_demand(torch.as_tensor(a), torch.as_tensor(t),
-                             torch.as_tensor(lam))
+                             torch.as_tensor(m), torch.as_tensor(lam))
     np.testing.assert_allclose(_np(tb), np.asarray(jb), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(_np(ts), np.asarray(js), rtol=1e-3, atol=1e-4)
     assert np.all(_np(tb)[~m.any(1)] == 0.0)
@@ -108,7 +108,8 @@ def test_market_clear_plain_matches_pallas(n, k, seed_scale, iters,
     jb, jf, jl = j_market_clear(jnp.asarray(a), jnp.asarray(t), jnp.float32(B),
                                 jnp.asarray(lam_prev), tile_n=8,
                                 interpret=True, **kw)
-    tb, tf, tl = ops.market_clear(torch.as_tensor(a), torch.as_tensor(t), B,
+    tb, tf, tl = ops.market_clear(torch.as_tensor(a), torch.as_tensor(t),
+                                  torch.as_tensor(m), B,
                                   torch.tensor(lam_prev), **kw)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
     np.testing.assert_allclose(_np(tb), np.asarray(jb), rtol=1e-3, atol=1e-4)
@@ -125,6 +126,7 @@ def test_market_clear_all_inactive_market():
                                 jnp.float32(B), jnp.float32(0.2), tile_n=8,
                                 interpret=True)
     tb, tf, tl = ops.market_clear(torch.as_tensor(zeros), torch.as_tensor(zeros),
+                                  torch.zeros(zeros.shape, dtype=torch.bool),
                                   B, torch.tensor(0.2))
     assert np.all(_np(tb) == 0.0) and np.all(_np(tf) == 0.0)
     assert np.isfinite(float(tl))
@@ -139,14 +141,15 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     ops.reset_launches()
     a, t, m = (torch.as_tensor(x) for x in _edge_arrays(3, 7, 19))
     b = torch.full((7,), 1.5)
-    got = ops.intra_allocate(a, t, b)
-    want = bisect_alloc_plain(a, t, b)
+    got = ops.intra_allocate(a, t, m, b)
+    want = bisect_alloc_plain(a, t, m, b)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     lam = torch.tensor(0.25)
     assert all(torch.equal(g, w) for g, w in
-               zip(ops.dual_demand(a, t, lam), dual_demand_plain(a, t, lam)))
-    got = ops.market_clear(a, t, B, torch.tensor(-1.0))
-    want = market_clear_plain(a, t, B, torch.tensor(-1.0))
+               zip(ops.dual_demand(a, t, m, lam),
+                   dual_demand_plain(a, t, m, lam)))
+    got = ops.market_clear(a, t, m, B, torch.tensor(-1.0))
+    want = market_clear_plain(a, t, m, B, torch.tensor(-1.0))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ops.LAUNCHES == {name: 0 for name in ops.KERNEL_NAMES}
 
@@ -157,9 +160,10 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     ("shape", ValueError),
     ("lam_shape", ValueError),
     ("too_many_clients", ValueError),
+    ("mask_dtype", TypeError),
 ])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad, error):
-    a, t, _ = (torch.as_tensor(x) for x in _edge_arrays(4, 6, 6))
+    a, t, m = (torch.as_tensor(x) for x in _edge_arrays(4, 6, 6))
     lam = torch.tensor(0.2)
     if bad == "float64":
         a = a.double()
@@ -169,10 +173,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, error):
         t = t[:, :5]
     elif bad == "lam_shape":
         lam = torch.full((5,), 0.2)
+    elif bad == "mask_dtype":
+        m = m.to(torch.uint8)
     else:
         a = t = torch.zeros((2, ops.MAX_K + 1))
+        m = torch.zeros(a.shape, dtype=torch.bool)
     with pytest.raises(error):
-        ops.dual_demand(a, t, lam)
+        ops.dual_demand(a, t, m, lam)
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +211,7 @@ def test_market_clear_refuses_graph_capture(monkeypatch):
                         lambda: True)
     a = t = torch.ones((4, 3))
     with pytest.raises(RuntimeError, match="CUDA graph"):
-        mc.market_clear_cuda(a, t, B, torch.tensor(0.1))
+        mc.market_clear_cuda(a, t, a > 0, B, torch.tensor(0.1))
 
 
 def test_mailbox_tags_only_grow():
@@ -234,8 +241,8 @@ def test_mailbox_tags_only_grow():
 # ---------------------------------------------------------------------------
 
 def _cuda_market(n=8191, k=45):
-    a, t, _ = _edge_arrays(6, n, k, min_clients=min(2, k))
-    return torch.as_tensor(a).cuda(), torch.as_tensor(t).cuda()
+    return tuple(torch.as_tensor(x).cuda()
+                 for x in _edge_arrays(6, n, k, min_clients=min(2, k)))
 
 
 # B1 and B2 at the main path's shape (the paper's ten services, K = 45,
@@ -246,9 +253,10 @@ B12_SHAPES = [(10, 45), (8191, 45)]
 @needs_cuda
 @pytest.mark.parametrize("n,k", B12_SHAPES)
 def test_cuda_bisect_alloc_matches_plain(n, k):
-    a, t = _cuda_market(n, k)
+    a, t, mk = _cuda_market(n, k)
     b = torch.where(a.sum(1) > 0, 1e-3, 0.0)
-    got, want = ops.intra_allocate(a, t, b), bisect_alloc_plain(a, t, b)
+    got = ops.intra_allocate(a, t, mk, b)
+    want = bisect_alloc_plain(a, t, mk, b)
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-4)
 
@@ -256,9 +264,10 @@ def test_cuda_bisect_alloc_matches_plain(n, k):
 @needs_cuda
 @pytest.mark.parametrize("n,k", B12_SHAPES)
 def test_cuda_dual_demand_matches_plain(n, k):
-    a, t = _cuda_market(n, k)
+    a, t, mk = _cuda_market(n, k)
     lam = torch.tensor(0.2, device="cuda")
-    for g, w in zip(ops.dual_demand(a, t, lam), dual_demand_plain(a, t, lam)):
+    for g, w in zip(ops.dual_demand(a, t, mk, lam),
+                    dual_demand_plain(a, t, mk, lam)):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
 
 
@@ -271,17 +280,17 @@ def test_cuda_speculation_depths_give_the_same_bits(n, k):
                                                   bisect_alloc_plan)
     from repro_torch.kernels.dual_demand import dual_demand_cuda
 
-    a, t = _cuda_market(n, k)
+    a, t, mk = _cuda_market(n, k)
     b = torch.where(a.sum(1) > 0, 1e-3, 0.0)
     lam = torch.full((n,), 0.02, device="cuda")
     depths = [1, 2] if k <= 64 else [1]
     assert [bisect_alloc_plan(n, k, j) for j in depths] == depths
     for iters in (24, 48, 7):
-        first = [bisect_alloc_cuda(a, t, b, iters, depth=1),
-                 dual_demand_cuda(a, t, lam, iters, depth=1)]
+        first = [bisect_alloc_cuda(a, t, mk, b, iters, depth=1),
+                 dual_demand_cuda(a, t, mk, lam, iters, depth=1)]
         for j in depths[1:]:
-            again = [bisect_alloc_cuda(a, t, b, iters, depth=j),
-                     dual_demand_cuda(a, t, lam, iters, depth=j)]
+            again = [bisect_alloc_cuda(a, t, mk, b, iters, depth=j),
+                     dual_demand_cuda(a, t, mk, lam, iters, depth=j)]
             for x, y in zip(sum(map(list, first), []),
                             sum(map(list, again), [])):
                 assert torch.equal(x.view(torch.int32), y.view(torch.int32))
@@ -311,10 +320,11 @@ def test_cuda_speculation_table_covers_every_k():
 
 @needs_cuda
 def test_cuda_market_clear_matches_plain():
-    a, t = _cuda_market()
+    a, t, mk = _cuda_market()
     seed = torch.tensor(-1.0, device="cuda")
-    got = ops.market_clear(a, t, B, seed, iters=12, newton_inner_iters=48)
-    want = market_clear_plain(a, t, B, seed, iters=12, newton_inner_iters=48)
+    kw = dict(iters=12, newton_inner_iters=48)
+    got = ops.market_clear(a, t, mk, B, seed, **kw)
+    want = market_clear_plain(a, t, mk, B, seed, **kw)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
     torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-5)
@@ -325,12 +335,12 @@ def test_cuda_mbdf_demand_matches_plain():
     from repro_torch.core import auction
     from repro_torch.core.types import ServiceSet
 
-    a, t = _cuda_market()
-    svc = ServiceSet(alpha=a, t_comp=t, mask=a > 0)
+    a, t, mk = _cuda_market()
+    svc = ServiceSet(alpha=a, t_comp=t, mask=mk)
     for alpha_fair in (0.0, 0.5, 1.0):
         prices = auction.uniform_truthful_bids(svc, 5, alpha_fair).prices
-        got = ops.mbdf_demand(a, t, prices, alpha_fair)
-        want = mbdf_demand_plain(a, t, prices, alpha_fair)
+        got = ops.mbdf_demand(a, t, mk, prices, alpha_fair)
+        want = mbdf_demand_plain(a, t, mk, prices, alpha_fair)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -354,22 +364,24 @@ def _cuda_edge_market(n, k, active):
         if active == "one":
             mask[n // 2, : max(1, k // 2)] = True
     return (torch.as_tensor(np.where(mask, a, 0.0)).cuda(),
-            torch.as_tensor(np.where(mask, t, 0.0)).cuda())
+            torch.as_tensor(np.where(mask, t, 0.0)).cuda(),
+            torch.as_tensor(mask).cuda())
 
 
 @needs_cuda
 @pytest.mark.parametrize("n,k,active", CUDA_EDGE)
 def test_cuda_market_clear_edges_match_plain(n, k, active):
-    a, t = _cuda_edge_market(n, k, active)
-    cold = market_clear_plain(a, t, B, torch.tensor(-1.0, device="cuda"),
+    a, t, mk = _cuda_edge_market(n, k, active)
+    cold = market_clear_plain(a, t, mk, B,
+                              torch.tensor(-1.0, device="cuda"),
                               iters=12, newton_inner_iters=48)[2]
     seed = (cold * 1.03).contiguous()
-    got = ops.market_clear(a, t, B, seed)
-    want = market_clear_plain(a, t, B, seed)
+    got = ops.market_clear(a, t, mk, B, seed)
+    want = market_clear_plain(a, t, mk, B, seed)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
     torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-5)
-    again = ops.market_clear(a, t, B, seed)
+    again = ops.market_clear(a, t, mk, B, seed)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
@@ -377,13 +389,13 @@ def test_cuda_market_clear_edges_match_plain(n, k, active):
 @pytest.mark.parametrize("m", [1, 5, 8, 9])
 @pytest.mark.parametrize("n,k,active", CUDA_EDGE)
 def test_cuda_mbdf_demand_edges_match_plain(n, k, active, m):
-    a, t = _cuda_edge_market(n, k, active)
+    a, t, mk = _cuda_edge_market(n, k, active)
     asum = a.sum(dim=1)
     pmax = torch.where(asum > 0, 1.0 / torch.clamp(asum, min=1e-30), 0.0)
     steps = torch.arange(1, m + 1, dtype=torch.float32, device="cuda")
     prices = (1.15 * steps[None, :] * pmax[:, None] / (m + 1)).contiguous()
-    got = ops.mbdf_demand(a, t, prices, 0.5)
-    want = mbdf_demand_plain(a, t, prices, 0.5)
+    got = ops.mbdf_demand(a, t, mk, prices, 0.5)
+    want = mbdf_demand_plain(a, t, mk, prices, 0.5)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert bool((got >= 0).all()) and bool((got[:, 1:] <= got[:, :-1]).all())
     assert bool((got[asum == 0] == 0).all())

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Periods per second of the allocation episodes that launch B1
-(``bisect_alloc``) and B2 (``dual_demand``), for one or more checkouts
-of the repo, so two versions compare within one call on one card.
+(``bisect_alloc``), B2 (``dual_demand``) and B3 (``market_clear``), for
+one or more checkouts of the repo, so two versions compare within one
+call on one card.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -12,8 +13,9 @@ its own, in the order given (old, new, new, old spreads the host's drift
 over both).  A process drives ``chip_smoke.py``'s paper-setting episodes
 on the kernel backend "pallas" (SimConfig defaults: 10 services, K = 45):
 warm ``coop`` (B2 seven times a period, B1 once), ``es``, ``pp`` and
-``selfish`` (B1 once a period), each once untimed (the kernels' build and
-first calls), then ``--reps`` rounds of all four in turn.  Per root and
+``selfish`` (B1 once a period), and warm ``coop`` on "megakernel" (B3
+once a period), each once untimed (the kernels' build and first calls),
+then ``--reps`` rounds of all five in turn.  Per root and
 case: periods/s of every rep and their median, the average duration, and
 the kernels launched in one episode.  Per case over the roots: the
 median of each root's medians, and whether every root's durations agree.
@@ -34,7 +36,9 @@ from pathlib import Path
 
 CASES = {"coop-warm": dict(policy="coop", warm_start=True),
          "es": dict(policy="es"), "pp": dict(policy="pp"),
-         "selfish": dict(policy="selfish")}
+         "selfish": dict(policy="selfish"),
+         "coop-warm-megakernel": dict(policy="coop", warm_start=True,
+                                      intra_backend="megakernel")}
 
 
 def worker(root: Path, reps: int, device: str) -> dict:
@@ -46,7 +50,7 @@ def worker(root: Path, reps: int, device: str) -> dict:
     from repro_torch.kernels import ops
 
     def episode(kw: dict) -> tuple[float, dict, dict]:
-        cfg = simulator.SimConfig(**kw, intra_backend="pallas")
+        cfg = simulator.SimConfig(**{"intra_backend": "pallas", **kw})
         before = dict(ops.LAUNCHES)
         if device != "cpu":
             torch.cuda.synchronize()
