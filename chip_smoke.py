@@ -183,6 +183,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       those of the clean episode, training bitwise alike on "megakernel"
       and "reference", card against CPU loss within 1e-5, finite tables
       from the robust aggregators under nan) and the CLI's --check;
+      then, outside the counted paths, C8's one_client_poison drill (the
+      Table-1 set with alpha[1, 0] = NaN: on every demand backend the
+      rescue is flagged and equals, bit for bit, the cold bisection of
+      the set with that client dropped);
+   f. sharded (slice 11): disba_sharded over torch.distributed.  World 1
+      on nccl: at the market shape of phase 3 (8192 x 32, B = 10 MHz),
+      "newton" on "pallas" and on "reference" from 1.05 x the dense cold
+      price and "bisect", each against the dense solve of its method on
+      the card (b and f within rtol 1e-3 / atol as above, lam rtol 1e-3;
+      whether bitwise is printed; B2 launched once a Newton trip); then
+      run_fleet (the paper's setting cut to 40 periods) and
+      run_cotrain_fleet (cut to 8) of warm coop on "megakernel" and
+      selfish on "pallas", seeds 0-5 at chunk 2, bitwise per seed against
+      run_batch / run_cotrain_batch on the card, the "fleet" record the
+      reference's geometry.  Then 4 gloo ranks on the same card, spawned
+      from the phase (they load the built kernels): the same solves on
+      2048 rows a rank and the same fleets, held to the same dense solves
+      and batches.  Outside the counted paths (sharded_times): ms a solve
+      by method and world, ms a trip of the collective alone, B2's kernel
+      ms at each world's shard shape, B2 launches a solve per rank;
    per episode: rounds and durations equal (see compare_episodes for the
    one allowed exception), per-period b and f within tolerance (an
    auction's f beyond it must be the reference's f*(b) at its own b, see
@@ -199,7 +219,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
 9. the kernels line: per kernel, its launches on the paths of phases 2b,
-   5 and 7 (summed; 7d and 7e must each launch each of B1-B4), its
+   5 and 7 (summed; 7d, 7e and 7f must each launch each of B1-B4), its
    deviation, times and bound (B1 and B2 at 10 x
    45, B3 and B4 at the market shape); B7's row lists its
    two bf16 kernels under "parts" (a launch count is a call of both).
@@ -2304,6 +2324,423 @@ def allocd_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# C8: a partly poisoned row, rescued without the poisoned client.
+# ---------------------------------------------------------------------------
+
+def one_client_poison() -> dict:
+    """The Table-1 set (table1_service_set(0), B = 10 MHz) with alpha[1, 0]
+    = NaN: on every demand backend the warm solver flags the rescue, and
+    its b, f and lam equal bit for bit the cold bisection on the card of
+    the set with that client dropped (types.mask_clients)."""
+    from repro_torch.core import disba, network
+    from repro_torch.core.types import ServiceSet, mask_clients
+
+    svc, _ = network.table1_service_set(0)
+    svc = ServiceSet(*(x.to(DEVICE) for x in svc[:3]))
+    alpha = svc.alpha.clone()
+    alpha[1, 0] = float("nan")
+    svc = svc._replace(alpha=alpha)
+    want = disba.solve_lambda_bisect(
+        mask_clients(svc, torch.isfinite(svc.alpha)
+                     & torch.isfinite(svc.t_comp)), B_TOTAL)
+    rows = []
+    for backend in disba.DEMAND_BACKENDS:
+        res = disba.solve_lambda_newton_warm(svc, B_TOTAL, disba.WARM_COLD,
+                                             backend=backend)
+        bitwise = {key: bool(torch.equal(getattr(res, key),
+                                         getattr(want, key)))
+                   for key in ("b", "f", "lam")}
+        if not bool(res.fallback) or not all(bitwise.values()):
+            raise AssertionError(
+                f"one_client_poison/{backend}: fallback {bool(res.fallback)}"
+                f", bitwise {bitwise}: b {res.b.tolist()} against the "
+                f"dropped-client solve's {want.b.tolist()}")
+        rows.append({"backend": backend, "fallback": True,
+                     "bitwise": bitwise, "b": res.b.tolist()})
+    out = {"dropped_b": want.b.tolist(), "rows": rows}
+    emit({"phase": "one_client_poison", **out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: the allocation half of the distributed layer -- disba_sharded
+# over torch.distributed, and fleets over ranks.
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 4          # gloo ranks, all on the one card
+# (method, demand backend) of disba_sharded; "newton" from 1.05 x the
+# dense cold price, WARM_ITERS trips
+SHARDED_SOLVES = (("newton", "pallas"), ("newton", "reference"),
+                  ("bisect", "reference"))
+SHARDED_SOLVE_REPS = 5
+COLLECTIVE_TRIPS = 200
+SHARDED_SEEDS = (0, 1, 2, 3, 4, 5)
+SHARDED_CHUNK = 2
+SHARDED_CASES = (("coop", True, "megakernel"), ("selfish", False, "pallas"))
+# The paper's setting cut in depth: run_fleet to 40 periods (whole
+# episodes run ~200), run_cotrain_fleet to 8.
+SHARDED_FLEET = {"max_periods": 40}
+SHARDED_COTRAIN = {"max_periods": 8}
+SHARDED_KERNELS = COTRAIN_KERNELS
+TOL["lam_sharded"] = (1e-3, 0.0)   # tests/test_market_clear.py:130-133
+RANK_SETUP = None   # a rehearsal's hook, called first in every spawned rank
+
+
+def sharded_solves(svc, lam_prev: float, mesh) -> dict:
+    """Each SHARDED_SOLVES case of disba_sharded on this rank: its result
+    (numpy), the dual_demand launches of its first call, and the median
+    ms of SHARDED_SOLVE_REPS more (every rank starts each together)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import disba
+    from repro_torch.kernels import ops
+
+    out = {}
+    for method, backend in SHARDED_SOLVES:
+        def solve():
+            return disba.disba_sharded(
+                mesh, svc, B_TOTAL, method=method, lam_prev=lam_prev,
+                iters=disba.WARM_ITERS if method == "newton"
+                else disba.BISECT_ITERS, demand_backend=backend)
+
+        before = ops.LAUNCHES["dual_demand"]
+        res = solve()
+        launches = ops.LAUNCHES["dual_demand"] - before
+        times = []
+        for _ in range(SHARDED_SOLVE_REPS):
+            _sync(DEVICE)
+            if dist.is_initialized():
+                dist.barrier()
+            t0 = time.perf_counter()
+            solve()
+            _sync(DEVICE)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[f"{method}-{backend}"] = {
+            **{key: getattr(res, key).cpu().numpy()
+               for key in ("b", "f", "lam")},
+            "dual_demand_launches": launches,
+            "ms": float(np.median(times))}
+    return out
+
+
+def collective_trip_ms(mesh) -> float:
+    """ms per Newton trip's collective alone: the (demand, slope) pair's
+    all-reduce over the mesh, COLLECTIVE_TRIPS in a row."""
+    from repro_torch.distributed import collectives
+
+    pair = torch.ones(2, device=DEVICE)
+    for _ in range(10):
+        collectives.all_reduce(pair, mesh, ("data",))
+    _sync(DEVICE)
+    t0 = time.perf_counter()
+    for _ in range(COLLECTIVE_TRIPS):
+        collectives.all_reduce(pair, mesh, ("data",))
+    _sync(DEVICE)
+    return 1e3 * (time.perf_counter() - t0) / COLLECTIVE_TRIPS
+
+
+def sharded_configs() -> dict:
+    """label -> (engine, config, TrainSpec or None) of the fleets."""
+    from repro_torch.fl import cotrain, simulator
+
+    train = cotrain.TrainSpec(**COTRAIN_TRAIN)
+    out = {}
+    for pol, warm, backend in SHARDED_CASES:
+        kw = dict(PAPER, policy=pol, warm_start=warm, intra_backend=backend)
+        label = f"{pol}{'-warm' if warm else ''}-{backend}"
+        out[f"run_fleet-{label}"] = (
+            "run_fleet", simulator.SimConfig(**{**kw, **SHARDED_FLEET}), None)
+        out[f"run_cotrain_fleet-{label}"] = (
+            "run_cotrain_fleet",
+            simulator.SimConfig(**{**kw, **SHARDED_COTRAIN}), train)
+    return out
+
+
+def sharded_fleets(batch: bool = False) -> dict:
+    """Every sharded_configs fleet over the world's ranks (mesh=None), at
+    SHARDED_CHUNK over SHARDED_SEEDS: label -> (summary, seconds); with
+    ``batch`` the same seeds through run_batch / run_cotrain_batch."""
+    from repro_torch.fl import cotrain, simulator
+
+    out = {}
+    for label, (engine, cfg, train) in sharded_configs().items():
+        net = simulator._default_net(cfg)
+        seeds = list(SHARDED_SEEDS)
+        _sync(DEVICE)
+        t0 = time.perf_counter()
+        if engine == "run_fleet":
+            res = (simulator.run_batch(cfg, seeds, net, device=DEVICE)
+                   if batch else simulator.run_fleet(
+                       cfg, seeds, net, chunk_size=SHARDED_CHUNK,
+                       device=DEVICE))
+        else:
+            res = (cotrain.run_cotrain_batch(cfg, train, seeds, net,
+                                             device=DEVICE)
+                   if batch else cotrain.run_cotrain_fleet(
+                       cfg, train, seeds, net, chunk_size=SHARDED_CHUNK,
+                       device=DEVICE))
+        _sync(DEVICE)
+        out[label] = (res, time.perf_counter() - t0)
+    return out
+
+
+def _sharded_rank(rank: int, world: int, run_dir: str) -> None:
+    """One of SHARDED_RANKS gloo ranks on the card: the solves on its
+    rows, the collective's ms a trip, the fleets; its result (or its
+    traceback) pickled to run_dir/rank<r>.pkl."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    global DEVICE
+    path = Path(run_dir)
+    try:
+        with open(path / "inputs.pkl", "rb") as fh:
+            inputs = pickle.load(fh)
+        DEVICE = inputs["device"]
+        if inputs["setup"] is not None:
+            inputs["setup"]()
+        torch.set_num_threads(2)
+        if DEVICE == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(str(path / "store"), world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=300))
+        try:
+            from repro_torch import interop
+            from repro_torch.launch import mesh as mesh_lib
+
+            svc = interop.service_set_from_arrays(*inputs["market"],
+                                                  device=DEVICE)
+            mesh = mesh_lib.make_mesh((world,), ("data",))
+            t0 = time.perf_counter()
+            result = {"solves": sharded_solves(svc, inputs["lam_prev"], mesh),
+                      "collective_trip_ms": collective_trip_ms(mesh),
+                      "fleets": sharded_fleets()}
+            result["seconds"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+        result = {"ok": True, "result": result}
+    except Exception:  # reported by the parent, which raises
+        result = {"ok": False, "error": traceback.format_exc()}
+    with open(path / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def spawn_ranks(world: int, inputs: dict, timeout: float = 300) -> list:
+    """_sharded_rank on ``world`` spawned processes: their results in rank
+    order.  Raises with the failing ranks' tracebacks, or if any rank is
+    still running after ``timeout`` s (then it is terminated)."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as run_dir:
+        with open(Path(run_dir) / "inputs.pkl", "wb") as fh:
+            pickle.dump(inputs, fh)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_sharded_rank, args=(r, world, run_dir))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + timeout
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+        if hung:
+            raise AssertionError(f"sharded ranks {hung} still running after "
+                                 f"{timeout} s")
+        results = []
+        for rank, proc in enumerate(procs):
+            path = Path(run_dir) / f"rank{rank}.pkl"
+            if not path.exists():
+                raise AssertionError(f"sharded rank {rank} wrote no result "
+                                     f"(exit code {proc.exitcode})")
+            with open(path, "rb") as fh:
+                results.append(pickle.load(fh))
+    errors = [r["error"] for r in results if not r["ok"]]
+    if errors:
+        raise AssertionError("sharded ranks failed:\n" + "\n".join(errors))
+    return [r["result"] for r in results]
+
+
+def check_sharded_solves(label: str, got: dict, dense: dict) -> dict:
+    """Each solve of ``got`` against the dense solve of its method: b and f
+    within TOL (rtol 1e-3), lam within rtol 1e-3; whether bitwise.  A
+    Newton solve on "pallas" must have launched B2 once a trip."""
+    from repro_torch.core import disba
+
+    rows = {}
+    for key, res in got.items():
+        want = dense[key]
+        name = f"{label}/{key}"
+        rows[key] = {
+            "b": check_close(name, res["b"], want.b, "b"),
+            "f": check_close(name, res["f"], want.f, "f"),
+            "lam": check_close(name, res["lam"], want.lam, "lam_sharded"),
+            "bitwise": {k: bool(np.array_equal(
+                res[k], getattr(want, k).cpu().numpy()))
+                for k in ("b", "f", "lam")},
+            "ms": res["ms"], "dual_demand_launches":
+            res["dual_demand_launches"]}
+        expected = disba.WARM_ITERS if key == "newton-pallas" else 0
+        if res["dual_demand_launches"] != expected:
+            raise AssertionError(f"{name}: {res['dual_demand_launches']} "
+                                 f"dual_demand launches, expected "
+                                 f"{expected}")
+    return rows
+
+
+def check_sharded_fleets(label: str, fleets: dict, batches: dict,
+                         n_dev: int) -> dict:
+    """Each fleet bitwise per seed against its batch, its "fleet" record
+    the reference's geometry for ``n_dev`` ranks."""
+    from repro_torch.fl import simulator
+
+    rows = {}
+    for key, (fleet, seconds) in fleets.items():
+        fleet = dict(fleet)
+        record = fleet.pop("fleet")
+        chunk, n_chunks, padded_to = simulator._fleet_shape(
+            len(SHARDED_SEEDS), n_dev, SHARDED_CHUNK)
+        want = {"n_devices": n_dev, "mesh_axis": "seeds", "chunk": chunk,
+                "n_chunks": n_chunks, "padded_to": padded_to}
+        if record != want:
+            raise AssertionError(f"{label}/{key}: fleet record {record}, "
+                                 f"the reference's geometry {want}")
+        _bitwise(f"{label}/{key} vs its batch", fleet, batches[key][0])
+        rows[key] = {"seconds": seconds, "batch_seconds": batches[key][1],
+                     "fleet": record, "bitwise": True}
+    return rows
+
+
+def sharded_phase() -> dict:
+    """Slice 11's path.  (1) World 1 on nccl: disba_sharded at the market
+    shape (8192 x 32, phase 3's market, B = 10 MHz) by every
+    SHARDED_SOLVES case against the dense solve of its method on the card,
+    and the fleets (sharded_configs) against run_batch /
+    run_cotrain_batch, bitwise per seed.  (2) SHARDED_RANKS gloo ranks on
+    the card, spawned here: each solves on its 2048 rows (B2 a Newton
+    trip), held to the same dense solves, and runs its share of the same
+    fleets, held to the same batches bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.core import disba
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_start = time.perf_counter()
+    svc = market(MARKET_N, 32)
+    lam_prev = float(disba.solve_lambda_newton(svc, B_TOTAL).lam) * 1.05
+    dense = {"newton-pallas": disba.solve_lambda_newton_warm(
+                 svc, B_TOTAL, lam_prev, backend="pallas"),
+             "newton-reference": disba.solve_lambda_newton_warm(
+                 svc, B_TOTAL, lam_prev, backend="reference"),
+             "bisect-reference": disba.solve_lambda_bisect(svc, B_TOTAL)}
+    batches = sharded_fleets(batch=True)
+    out = {"market": [MARKET_N, 32], "lam_prev": lam_prev}
+
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo",
+            init_method=f"file://{store}/world1", rank=0, world_size=1)
+        try:
+            if DEVICE == "cuda":
+                torch.cuda.set_device(0)
+            backend = dist.get_backend()
+            mesh = mesh_lib.make_mesh((1,), ("data",))
+            t0 = time.perf_counter()
+            solves = sharded_solves(svc, lam_prev, mesh)
+            out["world1"] = {
+                "backend": backend,
+                "solves": check_sharded_solves("sharded world 1", solves,
+                                               dense),
+                "collective_trip_ms": collective_trip_ms(mesh),
+                "fleets": check_sharded_fleets(
+                    "sharded world 1", sharded_fleets(), batches, 1),
+                "seconds": time.perf_counter() - t0}
+        finally:
+            dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(SHARDED_RANKS, {
+        "device": DEVICE, "setup": RANK_SETUP, "lam_prev": lam_prev,
+        "market": tuple(x.cpu().numpy() for x in (svc.alpha, svc.t_comp,
+                                                  svc.mask))})
+    rows = []
+    for rank, res in enumerate(ranks):
+        label = f"sharded {SHARDED_RANKS} ranks/rank {rank}"
+        rows.append({
+            "rank": rank, "seconds": res["seconds"],
+            "collective_trip_ms": res["collective_trip_ms"],
+            "solves": check_sharded_solves(label, res["solves"], dense),
+            "fleets": check_sharded_fleets(label, res["fleets"], batches,
+                                           SHARDED_RANKS)})
+    for key in ranks[0]["solves"]:
+        for res in ranks[1:]:
+            for k in ("b", "f", "lam"):
+                if not np.array_equal(res["solves"][key][k],
+                                      ranks[0]["solves"][key][k]):
+                    raise AssertionError(f"sharded {SHARDED_RANKS} ranks: "
+                                         f"{key} {k} differs between ranks")
+    out[f"world{SHARDED_RANKS}"] = {"backend": "gloo", "ranks": rows,
+                                    "seconds": time.perf_counter() - t0}
+    out["batch_seconds"] = {k: v[1] for k, v in batches.items()}
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "sharded", **out})
+    return out
+
+
+def sharded_kernel_times(sharded: dict) -> dict:
+    """Outside the counted paths: B2's kernel ms at the shape a rank's
+    Newton trip gives it (the whole market at world 1, its first 2048
+    rows at 4 ranks; WARM_INNER_ITERS trips; CUDA events behind a device
+    sleep), beside the ms a trip of the collective alone and each world's
+    ms a solve (host clock around a synchronised call)."""
+    from repro_torch.core import disba
+    from repro_torch.kernels import ops
+
+    svc = market(MARKET_N, 32)
+    lam = torch.tensor(sharded["lam_prev"], dtype=torch.float32,
+                       device=DEVICE)
+    rows = MARKET_N // SHARDED_RANKS
+    b2 = {}
+    for world, n in ((1, MARKET_N), (SHARDED_RANKS, rows)):
+        a, t, mk = svc.alpha[:n], svc.t_comp[:n], svc.mask[:n]
+        b2[world] = device_ms(lambda: ops.dual_demand(
+            a, t, mk, lam, iters=disba.WARM_INNER_ITERS))
+    world_n = sharded[f"world{SHARDED_RANKS}"]["ranks"]
+    out = {
+        "world1": {"backend": sharded["world1"]["backend"],
+                   "collective_trip_ms":
+                   sharded["world1"]["collective_trip_ms"],
+                   "dual_demand_ms": b2[1], "shard": [MARKET_N, 32],
+                   "solve_ms": {k: v["ms"] for k, v in
+                                sharded["world1"]["solves"].items()},
+                   "dual_demand_launches_per_solve": sharded["world1"][
+                       "solves"]["newton-pallas"]["dual_demand_launches"]},
+        f"world{SHARDED_RANKS}": {
+            "backend": "gloo",
+            "collective_trip_ms": [r["collective_trip_ms"] for r in world_n],
+            "dual_demand_ms": b2[SHARDED_RANKS], "shard": [rows, 32],
+            "solve_ms": {k: [r["solves"][k]["ms"] for r in world_n]
+                         for k in world_n[0]["solves"]},
+            "dual_demand_launches_per_solve": [
+                r["solves"]["newton-pallas"]["dual_demand_launches"]
+                for r in world_n]},
+        "phase_seconds": sharded["seconds"]}
+    emit({"phase": "sharded_times", **out})
+    return out
+
+
 def auction_phase() -> dict:
     """Phase 8: the auction entry on the card against the same call on the
     CPU, and the prefix charges against the rerun."""
@@ -3113,17 +3550,24 @@ def main() -> int:
     clock["cotrain"] = time.perf_counter()
     paths["allocd"] = drive_path("allocd", allocd_phase)
     clock["allocd"] = time.perf_counter()
+    one_client_poison()    # C8's drill, outside the counted paths
+    clock["one_client_poison"] = time.perf_counter()
+    sharded = drive_path("sharded", sharded_phase, keep=True)
+    paths["sharded"] = PATH_LAUNCHES["sharded"]
+    clock["sharded"] = time.perf_counter()
     launches = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     emit({"phase": "launches", "launches": launches, "per_path": paths})
     missing = [name for name, count in launches.items() if count < 1]
     if missing:
         raise AssertionError(f"main paths never launched {missing}")
     for path, kernels in (("cotrain", COTRAIN_KERNELS),
-                          ("allocd", ALLOCD_KERNELS)):
+                          ("allocd", ALLOCD_KERNELS),
+                          ("sharded", SHARDED_KERNELS)):
         missing = [name for name in kernels if not PATH_LAUNCHES[path][name]]
         if missing:
             raise AssertionError(f"the {path} path never launched "
                                  f"{missing}")
+    sharded_kernel_times(sharded)   # after the paths, as draw_samplers
     draw_samplers()        # after the paths: its episodes count in no path
     clock["draw_samplers"] = time.perf_counter()
 

@@ -23,6 +23,10 @@ Layers, from the entry points down:
   ``run_fleet``, the checkpointable ``run``) over ``scenarios`` and the
   allocation ``core`` (``core.policy``), whose solvers launch the
   allocation kernels;
+* ``launch.mesh`` and ``distributed``: meshes over the ranks of a
+  ``torch.distributed`` world, the collectives over their axes, elastic
+  re-meshing; ``run_fleet`` and ``core.disba.disba_sharded`` split their
+  seeds or services over such a mesh;
 * ``checkpoint``: crash-safe tree checkpoints, in the reference's layout.
 """
 from repro_torch import checkpoint, data, fl  # noqa: F401

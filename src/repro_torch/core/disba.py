@@ -14,6 +14,13 @@ Solvers:
     ``solve_lambda_newton_warm`` -- market clearing by bisection or by
                         safeguarded Newton on the monotone aggregate demand,
                         the latter seeded from the previous period's price.
+  * ``disba_sharded`` -- the market clear with the services split over the
+                        ranks of a mesh: each rank solves its residents'
+                        inner problems, and the only traffic between ranks
+                        is a scalar reduction of demand per dual trip --
+                        Algorithm 1's operator<->provider pattern (and its
+                        privacy: client-level alpha/t_comp never leave the
+                        rank that holds them).
 
 Every solver keeps its price iterate as a float32 tensor on the set's
 device; only ``disba``'s stopping test and the warm solver's non-finite
@@ -21,13 +28,16 @@ rescue wait on the host.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import intra
 from repro_torch.core.types import BISECT_ITERS, ServiceSet
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 
 _TINY = 1e-30
 
@@ -56,13 +66,19 @@ def _scalar(x, svc: ServiceSet, dtype=torch.float32) -> torch.Tensor:
 
 def sanitize_service_set(svc: ServiceSet) -> tuple[ServiceSet, torch.Tensor]:
     """(cleaned set, poisoned?) -- non-finite alpha/t_comp entries are masked
-    out and replaced with benign placeholders; ``poisoned`` is True iff a
-    masked-in entry was non-finite."""
+    out and zeroed, as ``types.mask_clients`` drops a client, so the rescue
+    solves the set without them; ``poisoned`` is True iff a masked-in entry
+    was non-finite.
+
+    The JAX package writes 1.0 into those slots instead; its ``intra.demand``
+    then meets a masked slot with t^C != 0, underflows (1 - t^C f)^2 to 0
+    and starves the service (ROADMAP C2, C8), so the two rescues differ on
+    a partly poisoned row."""
     ok = torch.logical_and(torch.isfinite(svc.alpha), torch.isfinite(svc.t_comp))
     poisoned = torch.any(torch.logical_and(svc.mask, ~ok))
     clean = ServiceSet(
-        alpha=torch.where(ok, svc.alpha, 1.0),
-        t_comp=torch.where(ok, svc.t_comp, 1.0),
+        alpha=torch.where(ok, svc.alpha, 0.0),
+        t_comp=torch.where(ok, svc.t_comp, 0.0),
         mask=torch.logical_and(svc.mask, ok),
     )
     return clean, poisoned
@@ -331,4 +347,118 @@ def solve_lambda_newton_warm(
     return DisbaResult(
         b=b, f=f, lam=lam, iterations=_scalar(iters, svc, torch.int32),
         converged=_scalar(True, svc, torch.bool), fallback=bad,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Distributed DISBA: services split over the ranks of a mesh.
+# ---------------------------------------------------------------------------
+
+SHARDED_METHODS = ("bisect", "newton")
+
+
+def disba_sharded(
+    mesh: mesh_lib.Mesh | None,
+    svc: ServiceSet,
+    total_bandwidth: float,
+    axis_names: tuple[str, ...] = ("data",),
+    iters: int = BISECT_ITERS,
+    inner_iters: int = BISECT_ITERS,
+    method: str = "bisect",
+    lam_prev: torch.Tensor | float = WARM_COLD,
+    newton_inner_iters: int = WARM_INNER_ITERS,
+    demand_backend: str = "reference",
+) -> DisbaResult:
+    """Market-clearing DISBA with the service axis split over the ranks of
+    ``axis_names``.
+
+    Every rank passes the whole set and gets the whole ``b`` and ``f``
+    back; it solves only its contiguous block of rows (block index
+    row-major over ``axis_names``), and the ranks exchange a scalar
+    reduction per dual trip.  N must divide by the product of the axis
+    sizes: pad with all-masked rows, which demand exactly zero bandwidth
+    and so never move the clearing price.
+
+    ``method="bisect"`` runs the cold dual bisection, ``iters`` trips of
+    one scalar demand all-reduce each.  ``method="newton"`` runs the
+    safeguarded Newton of ``solve_lambda_newton_warm``, ``iters`` trips
+    seeded from ``lam_prev``: each trip evaluates the rank's demand and
+    slope (``demand_backend="reference"``, PyTorch ops, or ``"pallas"``,
+    one ``dual_demand`` launch on the rank's rows) and all-reduces the
+    (demand, slope) pair once; the price update is replicated.  The final
+    demand and frequency are the plain ``intra.demand`` / ``intra.freq``,
+    as in the JAX package; a multi-axis ``axis_names`` reduces once per
+    axis.
+
+    ``mesh=None`` builds a one-axis mesh over the world through
+    ``launch.mesh.flat_mesh`` -- the same path as ``fl.simulator.run_fleet``
+    (requires ``len(axis_names) == 1``).  Without a process group the
+    world is one rank and every reduction is the identity.
+    """
+    if method not in SHARDED_METHODS:
+        raise ValueError(f"unknown method {method!r}; "
+                         f"expected one of {SHARDED_METHODS}")
+    if demand_backend not in ("reference", "pallas"):
+        raise ValueError(f"unknown demand backend {demand_backend!r}; "
+                         f"expected 'reference' or 'pallas'")
+    if mesh is None:
+        if len(axis_names) != 1:
+            raise ValueError(
+                f"mesh=None builds a one-axis mesh; pass an explicit mesh "
+                f"for multi-axis sharding over {axis_names}")
+        mesh = mesh_lib.flat_mesh(axis_name=axis_names[0])
+    n_shards = math.prod(mesh.shape[ax] for ax in axis_names)
+    if svc.n_services % n_shards:
+        raise ValueError(
+            f"{svc.n_services} services do not split over the {n_shards} "
+            f"ranks of {axis_names}: pad the set with all-masked rows")
+    block = 0
+    for ax in axis_names:
+        block = block * mesh.shape[ax] + mesh.coordinate(ax)
+    rows = svc.n_services // n_shards
+    lo = block * rows
+    local = ServiceSet(alpha=svc.alpha[lo:lo + rows],
+                       t_comp=svc.t_comp[lo:lo + rows],
+                       mask=svc.mask[lo:lo + rows])
+
+    def reduce(x, op="sum"):
+        return collectives.all_reduce(x, mesh, axis_names, op)
+
+    lam_hi = reduce(torch.amax(intra.p_max(local)), "max")
+    if method == "bisect":
+        def h(lam):
+            d = reduce(torch.sum(intra.demand(local, lam, inner_iters)))
+            return d - total_bandwidth
+
+        lam = intra._bisect(h, torch.zeros_like(lam_hi), lam_hi, iters)
+    else:
+        lam_seed = _scalar(lam_prev, local)
+        warm_ok = torch.logical_and(lam_seed > 0.0, lam_seed < lam_hi)
+        lam = torch.where(warm_ok, lam_seed, 0.5 * lam_hi)
+        lo_lam, hi_lam = torch.zeros_like(lam_hi), lam_hi
+        for _ in range(iters):
+            if demand_backend == "pallas":
+                b_l, s_l = ops.dual_demand(local.alpha, local.t_comp,
+                                           local.mask, lam,
+                                           iters=newton_inner_iters)
+            else:
+                b_l, s_l = demand_slope_values(local, lam, newton_inner_iters)
+            # ONE collective per trip: the (demand, slope) pair.
+            d, slope = reduce(torch.stack([torch.sum(b_l), torch.sum(s_l)]))
+            resid = d - total_bandwidth
+            lo_lam = torch.where(resid > 0, lam, lo_lam)
+            hi_lam = torch.where(resid > 0, hi_lam, lam)
+            step = resid / torch.where(torch.abs(slope) > _TINY, slope, -_TINY)
+            lam_newton = lam - step
+            in_bracket = torch.logical_and(lam_newton >= lo_lam,
+                                           lam_newton <= hi_lam)
+            lam = torch.where(in_bracket, lam_newton, 0.5 * (lo_lam + hi_lam))
+    b = intra.demand(local, lam, inner_iters)
+    b = b * (total_bandwidth / torch.clamp(reduce(torch.sum(b)), min=_TINY))
+    f = intra.freq(local, b, inner_iters)
+    return DisbaResult(
+        b=collectives.all_gather_rows(b, mesh, axis_names),
+        f=collectives.all_gather_rows(f, mesh, axis_names),
+        lam=lam, iterations=_scalar(iters, svc, torch.int32),
+        converged=_scalar(True, svc, torch.bool),
     )

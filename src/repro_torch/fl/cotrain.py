@@ -648,22 +648,23 @@ def run_cotrain_fleet(cfg: simulator.SimConfig,
                       net: network.NetworkConfig | None = None, *,
                       mesh=None, chunk_size: int | None = None, data=None,
                       device=None, attack=None) -> dict:
-    """A co-trained Monte-Carlo sweep over ``seeds`` in chunks of
-    ``chunk_size`` (``simulator.fleet_geometry``), each chunk as
+    """A co-trained Monte-Carlo sweep over ``seeds``, split over the ranks
+    of a one-axis ``mesh`` in chunks of ``chunk_size``
+    (``simulator.fleet_geometry`` and ``fleet_parts``), each chunk as
     ``run_cotrain_batch`` runs it, its outputs on the host before the next
-    starts.  Per seed bitwise ``run_cotrain_batch``'s; plus a ``"fleet"``
-    record of the geometry."""
+    starts.  Every rank returns the whole summary: per seed bitwise
+    ``run_cotrain_batch``'s; plus a ``"fleet"`` record of the geometry."""
     train = train or TrainSpec()
     _check_spec(train, attack)
     seeds = [int(s) for s in seeds]
-    _, axis, n_dev, chunk, n_chunks, padded = simulator.fleet_geometry(
-        seeds, mesh, chunk_size)
-    parts = [run_cotrain_batch(cfg, train, part, net, data=data,
-                               device=device, attack=attack)
-             for part in simulator.fleet_chunks(seeds, chunk)]
+    device = torch.device(device) if device is not None else default_device()
+    geometry = simulator.fleet_geometry(seeds, mesh, chunk_size)
+    parts = simulator.fleet_parts(
+        seeds, geometry, lambda part: run_cotrain_batch(
+            cfg, train, part, net, data=data, device=device, attack=attack),
+        device)
     out = simulator._concat([{k: v for k, v in p.items() if k != "time_s"}
                              for p in parts])
     out["time_s"] = parts[0]["time_s"]
-    out["fleet"] = {"n_devices": n_dev, "mesh_axis": axis, "chunk": chunk,
-                    "n_chunks": n_chunks, "padded_to": len(padded)}
+    out["fleet"] = simulator.fleet_record(geometry)
     return out

@@ -13,9 +13,10 @@ stops after the period in which every service finished; per period it
 waits on the host twice: for that stopping test, and (warm ``coop``) for
 the solver's non-finite rescue test.  ``run_batch`` runs one such episode
 per seed, each with its own warm state, and stacks the summaries as the
-JAX package's vmapped ``run_batch`` does.  ``run_fleet`` walks a fleet of
-seeds a chunk at a time (``fleet_geometry``), each chunk as ``run_batch``
-runs it, its outputs on the host before the next chunk starts.  ``run``
+JAX package's vmapped ``run_batch`` does.  ``run_fleet`` splits a fleet
+of seeds over the ranks of a mesh and walks each rank's share a chunk at
+a time (``fleet_geometry``), each chunk as ``run_batch`` runs it, its
+outputs on the host before the next chunk starts.  ``run``
 is the legacy checkpointable engine: a per-period loop over the same
 period step with plain-dict (JSON) state, resumable after a crash.
 
@@ -38,9 +39,11 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import scenarios, tree
 from repro_torch.core import network, policy as policy_mod
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.core.types import (ServiceSet, default_device, mask_clients,
                                     mask_inactive, scale_uplink)
 from repro_torch.scenarios import GeneratorSource, generator
@@ -57,8 +60,6 @@ _COUNTS_SALT = (1 << 30) + 4
 # Default chunk of run_fleet (the reference's: its (chunk, N, K) solver
 # working set stays cache-resident).
 FLEET_CHUNK = 64
-# The fleet's one mesh axis, by the reference's name.
-FLEET_AXIS = "seeds"
 
 # Version tag of this package's draw streams, written into the legacy
 # engine's snapshots.  A resume re-derives the arrivals, counts and every
@@ -553,30 +554,69 @@ def _pad_history(x: np.ndarray, key: str, max_periods: int) -> np.ndarray:
 # Fleet engine: a sweep over many seeds, a chunk at a time.
 # ---------------------------------------------------------------------------
 
+def _fleet_shape(n_seeds: int, n_dev: int,
+                 chunk_size: int | None) -> tuple[int, int, int]:
+    """(chunk, n_chunks, padded fleet size): seeds are padded up to
+    n_dev * n_chunks * chunk so every rank owns the same chunk grid (the
+    pad seeds are never run)."""
+    per_dev = -(-n_seeds // n_dev)
+    chunk = max(1, min(chunk_size or FLEET_CHUNK, per_dev))
+    n_chunks = -(-per_dev // chunk)
+    return chunk, n_chunks, n_dev * n_chunks * chunk
+
+
 def fleet_geometry(seeds, mesh, chunk_size: int | None):
-    """Normalize a fleet request: derive the chunk grid (the reference's
-    arithmetic on one device) and pad the seed list with repeats of its
-    last seed to whole chunks.  Returns ``(mesh, axis, n_dev, chunk,
-    n_chunks, padded_seeds)``, as the reference does.  One card is one
-    device: ``mesh`` must be None (sharding a fleet over several cards
-    waits for the port's distributed layer)."""
+    """Normalize a fleet request: validate the mesh (one axis; None is
+    ``launch.mesh.make_fleet_mesh()``, the world), derive the chunk grid
+    (the reference's arithmetic, one device a rank) and pad the seed list
+    with repeats of its last seed so every rank owns the same grid.
+    Returns ``(mesh, axis, n_dev, chunk, n_chunks, padded_seeds)``, as the
+    reference does."""
     seeds = [int(s) for s in seeds]
     if not seeds:
         raise ValueError("fleet sweeps need at least one seed")
-    if mesh is not None:
-        raise NotImplementedError(
-            "a fleet mesh over several devices needs the port's distributed "
-            "layer (ROADMAP Queue A item 12); pass mesh=None")
-    chunk = max(1, min(chunk_size or FLEET_CHUNK, len(seeds)))
-    n_chunks = -(-len(seeds) // chunk)
-    padded = seeds + [seeds[-1]] * (n_chunks * chunk - len(seeds))
-    return None, FLEET_AXIS, 1, chunk, n_chunks, padded
+    if mesh is None:
+        mesh = mesh_lib.make_fleet_mesh()
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"fleet sweeps shard over a one-axis mesh, got axes "
+            f"{mesh.axis_names}")
+    axis = mesh.axis_names[0]
+    n_dev = mesh.shape[axis]
+    chunk, n_chunks, padded_to = _fleet_shape(len(seeds), n_dev, chunk_size)
+    padded = seeds + [seeds[-1]] * (padded_to - len(seeds))
+    return mesh, axis, n_dev, chunk, n_chunks, padded
 
 
 def fleet_chunks(seeds: list, chunk: int) -> list[list[int]]:
     """The fleet's real seeds, chunk by chunk (the pad seeds would be
     dropped before summarizing, so no chunk runs them)."""
     return [seeds[i:i + chunk] for i in range(0, len(seeds), chunk)]
+
+
+def fleet_parts(seeds: list, geometry: tuple, run_chunk: Callable,
+                device: torch.device) -> list:
+    """Every rank's chunk results, in rank order, on every rank.
+
+    Rank r owns the padded seeds [r n_chunks chunk, (r + 1) n_chunks
+    chunk) of ``geometry`` (``fleet_geometry``'s); it runs the real seeds
+    among them, chunk by chunk through ``run_chunk(seeds)``, and the ranks
+    exchange their (host) results with ``all_gather_object``.  A rank that
+    owns only pad seeds contributes no part."""
+    mesh, axis, _, chunk, n_chunks, _ = geometry
+    group = mesh.group(axis)
+    per_rank = n_chunks * chunk
+    start = mesh.coordinate(axis) * per_rank
+    parts = [run_chunk(part)
+             for part in fleet_chunks(seeds[start:start + per_rank], chunk)]
+    if group is None:
+        return parts
+    if dist.get_backend(group) == "nccl" and device.index is not None:
+        # the objects travel as byte tensors on the current device
+        torch.cuda.set_device(device)
+    gathered = [None] * mesh.shape[axis]
+    dist.all_gather_object(gathered, parts, group=group)
+    return [part for rank_parts in gathered for part in rank_parts]
 
 
 def _concat(parts: list):
@@ -592,25 +632,33 @@ def _concat(parts: list):
     return np.concatenate(parts)
 
 
+def fleet_record(geometry: tuple) -> dict:
+    """The ``"fleet"`` record of a summary: the geometry it ran on."""
+    _, axis, n_dev, chunk, n_chunks, padded = geometry
+    return {"n_devices": n_dev, "mesh_axis": axis, "chunk": chunk,
+            "n_chunks": n_chunks, "padded_to": len(padded)}
+
+
 def run_fleet(cfg: SimConfig, seeds, net: network.NetworkConfig | None = None,
               *, mesh=None, chunk_size: int | None = None,
               device=None) -> dict:
-    """A Monte-Carlo sweep over ``seeds``, ``chunk_size`` episodes at a
-    time (default ``FLEET_CHUNK``).  Each chunk runs as ``run_batch`` runs
-    it and its outputs reach host numpy before the next chunk starts;
-    without ``collect_history`` no (S, T) array is built.  Per seed the
-    outputs are bitwise ``run_batch``'s, at every chunk size.  Returns the
-    ``run_batch`` summary plus a ``"fleet"`` record of the geometry."""
+    """A Monte-Carlo sweep over ``seeds``, split over the ranks of a
+    one-axis ``mesh`` (default: every rank of the world, one rank without
+    a process group), ``chunk_size`` episodes at a time (default
+    ``FLEET_CHUNK``).  Each rank runs its block of seeds (``fleet_parts``),
+    each chunk as ``run_batch`` runs it, its outputs on the host before
+    the next chunk starts; without ``collect_history`` no (S, T) array is
+    built.  Every rank returns the whole summary: per seed bitwise
+    ``run_batch``'s, at every chunk size and rank count, plus a
+    ``"fleet"`` record of the geometry."""
     device = torch.device(device) if device is not None else default_device()
     net = net or _default_net(cfg)
     seeds = [int(s) for s in seeds]
-    _, axis, n_dev, chunk, n_chunks, padded = fleet_geometry(
-        seeds, mesh, chunk_size)
-    parts = [run_batch(cfg, part, net, device=device)
-             for part in fleet_chunks(seeds, chunk)]
-    out = _concat(parts)
-    out["fleet"] = {"n_devices": n_dev, "mesh_axis": axis, "chunk": chunk,
-                    "n_chunks": n_chunks, "padded_to": len(padded)}
+    geometry = fleet_geometry(seeds, mesh, chunk_size)
+    out = _concat(fleet_parts(
+        seeds, geometry, lambda part: run_batch(cfg, part, net, device=device),
+        device))
+    out["fleet"] = fleet_record(geometry)
     return out
 
 

@@ -24,13 +24,15 @@ import torch
 from repro.chaos import engine as j_engine
 from repro.chaos import injectors as j_inj
 from repro.chaos.schedule import ChaosSchedule as JSchedule
+from repro.core import disba as j_disba
 from repro.core import network as j_network
 from repro.core import policy as j_policy
+from repro.core import types as j_types
 from repro.fl import control_plane as j_cp
 from repro_torch import chaos, interop, tree
 from repro_torch.chaos import injectors, invariants
 from repro_torch.chaos.schedule import ChaosSchedule
-from repro_torch.core import policy
+from repro_torch.core import disba, policy
 from repro_torch.fl.control_plane import ControlPlane, ControlPlaneConfig
 from repro_torch.launch import allocd
 from test_torch_control_plane import (CPU, assert_decisions_close,
@@ -193,11 +195,25 @@ def test_poison_picks_equal_reference(seed):
 
 
 @pytest.mark.parametrize("poison", ["channel", "seed"])
-def test_poisoned_tick_rescued_on_every_backend(poison):
+def test_poisoned_tick_rescued_on_every_backend(poison, monkeypatch):
     """The same poisoned carry on every backend (the kernels' plain
     versions here; the card in ``chip_smoke.py``) and in the reference
-    package: the same rescue count, finite decisions within tolerance of
-    each other, the carry healed, and the next tick finite."""
+    package: the same rescue count, finite decisions, the carry healed,
+    and the next tick finite and within tolerance of the reference
+    plane's.  A poisoned channel entry poisons one client of a service:
+    the port's rescue drops that client, so its decision is the JAX
+    package's cold bisection of the tick's set without the poisoned
+    clients (``mask_clients``); the JAX plane's own rescue keeps 1.0 in
+    the dropped slot and meets C2.  A poisoned seed leaves the set whole,
+    and every backend's decisions stay within tolerance of each other."""
+    solves = []
+    solve = disba.solve_lambda_newton_warm
+
+    def recording(svc, b_total, *args, **kwargs):
+        solves.append((svc, b_total))
+        return solve(svc, b_total, *args, **kwargs)
+
+    monkeypatch.setattr(disba, "solve_lambda_newton_warm", recording)
     out = {}
     for backend in ("reference", "pallas", "megakernel", "jax"):
         kw = dict(capacity=4, k_max=8, rounds_required=5000,
@@ -215,15 +231,32 @@ def test_poisoned_tick_rescued_on_every_backend(poison):
               else mod.poison_warm_seed(pl, rng, value=np.nan))
         assert ev is not None
         d = pl.tick()
+        poisoned_set = solves[-1] if backend != "jax" else None
         d2 = pl.tick()
-        out[backend] = (d, d2, dict(pl.metrics))
+        out[backend] = (d, d2, dict(pl.metrics), poisoned_set)
         assert not pl.replayable and pl.unreplayable_reasons
     ref = out["reference"]
-    for backend, (d, d2, metrics) in out.items():
+    for backend, (d, d2, metrics, poisoned_set) in out.items():
         assert metrics == ref[2], backend
         assert metrics["solver_fallbacks"] >= 1
         assert np.all(np.isfinite(d.b)) and np.all(np.isfinite(d2.f))
-        assert_decisions_close([d, d2], ref[:2])
+        if poison == "seed":
+            assert_decisions_close([d, d2], ref[:2])
+            continue
+        assert_decisions_close([d2], [out["jax"][1]])
+        if backend == "jax":
+            continue
+        svc, b_total = poisoned_set
+        alpha, t_comp = svc.alpha.numpy(), svc.t_comp.numpy()
+        finite = np.isfinite(alpha) & np.isfinite(t_comp)
+        assert not finite[svc.mask.numpy()].all()   # a client was poisoned
+        dropped = j_types.mask_clients(
+            j_types.ServiceSet(alpha=jnp.asarray(alpha),
+                               t_comp=jnp.asarray(t_comp),
+                               mask=jnp.asarray(svc.mask.numpy())),
+            jnp.asarray(finite))
+        want = j_disba.solve_lambda_bisect(dropped, b_total)
+        assert_decisions_close([d], [d._replace(b=want.b, f=want.f)])
 
 
 needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",

@@ -38,6 +38,7 @@ from repro.fl import simulator as j_sim
 from repro_torch import interop
 from repro_torch.core import network
 from repro_torch.fl import cotrain, server, simulator
+from repro_torch.launch import mesh as mesh_lib
 from test_torch_scenarios import jax_sampler
 
 CPU = torch.device("cpu")
@@ -251,9 +252,11 @@ def test_unported_options_raise():
                                  attack=object(), device=CPU)
     with pytest.raises(TypeError, match="AttackSpec"):
         server.make_fl_round_step(cotrain.bigram_loss, attack=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # mesh= is ported: as in the reference, a multi-axis mesh raises
+    with pytest.raises(ValueError, match="one-axis mesh"):
         cotrain.run_cotrain_fleet(cfg, cotrain.TrainSpec(**TRAIN), [0], NET,
-                                  mesh=object(), device=CPU)
+                                  mesh=mesh_lib.make_mesh((1, 1), ("a", "b")),
+                                  device=CPU)
     with pytest.raises(ValueError, match="unknown train task"):
         cotrain.run_cotrain_scan(cfg, cotrain.TrainSpec(task="nope"), NET,
                                  device=CPU)

@@ -18,9 +18,12 @@ from repro.core import policy as j_policy
 from repro.core import types as j_types
 from repro_torch import interop
 from repro_torch.core import disba, intra, policy
+from repro_torch.core.types import ServiceSet, mask_clients
 
 B = 10.0
 CPU = torch.device("cpu")
+needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
+                                reason="needs a CUDA card")
 
 
 def _pair(seed, n=9, k=31):
@@ -103,20 +106,49 @@ def test_demand_slope_values_and_objective_match():
                                rtol=1e-5)
 
 
+def _poisoned(seed: int, field: str):
+    """``_pair(seed)`` with a NaN in ``field`` at service 1, client 0 (a
+    masked-in entry), and the JAX set with that client dropped
+    (``mask_clients``): what the rescue must solve."""
+    j, t = _pair(seed)
+    x = np.array(getattr(j, field))
+    x[1, 0] = np.nan
+    j = j._replace(**{field: jnp.asarray(x)})
+    t = t._replace(**{field: torch.as_tensor(x)})
+    finite = np.isfinite(np.asarray(j.alpha)) & np.isfinite(np.asarray(j.t_comp))
+    return j, t, j_types.mask_clients(j, jnp.asarray(finite))
+
+
+@pytest.mark.parametrize("field", ["alpha", "t_comp"])
 @pytest.mark.parametrize("backend", disba.DEMAND_BACKENDS)
-def test_nonfinite_set_takes_the_rescue(backend):
-    """A NaN in a masked-in entry sets ``fallback`` and the result is the
-    finite cold-bisection rescue on the sanitized set (disba.py:395-413)."""
-    j, t = _pair(6)
-    a = np.array(j.alpha)
-    a[1, 0] = np.nan
-    j = j._replace(alpha=jnp.asarray(a))
-    t = t._replace(alpha=torch.as_tensor(a))
+def test_nonfinite_set_takes_the_rescue(backend, field):
+    """A NaN in a masked-in entry sets ``fallback`` on both sides, and the
+    result is the cold bisection on the set without that client: the JAX
+    package's ``solve_lambda_bisect`` with the client dropped.  (The JAX
+    package's own rescue keeps 1.0 in the dropped slot and meets C2.)"""
+    j, t, j_dropped = _poisoned(6, field)
     ref = j_disba.solve_lambda_newton_warm(j, B, jnp.float32(0.1))
     res = disba.solve_lambda_newton_warm(t, B, 0.1, backend=backend)
     assert bool(res.fallback) and bool(ref.fallback)
     assert bool(torch.isfinite(res.b).all()) and bool(torch.isfinite(res.f).all())
-    _same_result(res, ref)
+    _same_result(res, j_disba.solve_lambda_bisect(j_dropped, B))
+
+
+@needs_cuda
+@pytest.mark.parametrize("field", ["alpha", "t_comp"])
+@pytest.mark.parametrize("backend", disba.DEMAND_BACKENDS)
+def test_nonfinite_set_takes_the_rescue_on_the_card(backend, field):
+    """The same poisoned set on the card: the rescue equals, bit for bit,
+    the port's cold bisection there on the set with the client dropped
+    (``types.mask_clients``)."""
+    _, t, _ = _poisoned(6, field)
+    t = ServiceSet(*(x.to("cuda") for x in t[:3]))
+    dropped = mask_clients(t, torch.isfinite(t.alpha) & torch.isfinite(t.t_comp))
+    res = disba.solve_lambda_newton_warm(t, B, 0.1, backend=backend)
+    want = disba.solve_lambda_bisect(dropped, B)
+    assert bool(res.fallback)
+    for got, exp in ((res.b, want.b), (res.f, want.f), (res.lam, want.lam)):
+        assert torch.equal(got, exp)
 
 
 def test_nonfinite_seed_takes_the_rescue():

@@ -1,7 +1,8 @@
 """The port's fleet engine (``run_fleet``), legacy checkpointable engine
 (``run``) and ``network.table1_service_set``.
 
-``fleet_geometry`` keeps the reference's chunk arithmetic for one device;
+``fleet_geometry`` keeps the reference's chunk arithmetic for one rank
+(several ranks: ``test_torch_distributed.py``);
 ``run_fleet`` is bitwise ``run_batch`` per seed at every chunk size and
 remainder (the cases of ``tests/test_fleet.py`` without a mesh), and
 without ``collect_history`` returns no (S, T) array.  The legacy ``run``
@@ -24,6 +25,7 @@ from repro.fl import simulator as j_sim
 from repro_torch import scenarios
 from repro_torch.core import network
 from repro_torch.fl import simulator
+from repro_torch.launch import mesh as mesh_lib
 from test_torch_scenarios import _raw_fn, _t
 
 CPU = torch.device("cpu")
@@ -43,17 +45,21 @@ def test_fleet_geometry_matches_reference_one_device(n_seeds, chunk_size):
         seeds, None, chunk_size)
     assert (chunk, n_chunks, len(padded)) == j_sim._fleet_shape(
         n_seeds, 1, chunk_size)
-    assert mesh is None and axis == "seeds" and n_dev == 1
+    assert mesh.axis_names == ("seeds",) and mesh.device_mesh is None
+    assert axis == "seeds" and n_dev == 1
     assert padded[:n_seeds] == seeds
     assert set(padded[n_seeds:]) <= {seeds[-1]}
     assert simulator.FLEET_CHUNK == j_sim.FLEET_CHUNK
 
 
 def test_fleet_rejects_empty_and_meshes():
+    """As the reference: no seeds, or a mesh of more than one axis, raise
+    ``ValueError``."""
     with pytest.raises(ValueError, match="at least one seed"):
         simulator.run_fleet(_cfg(), [], device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        simulator.run_fleet(_cfg(), [0], mesh=object(), device=CPU)
+    mesh2d = mesh_lib.make_mesh((1, 1), ("a", "b"))
+    with pytest.raises(ValueError, match="one-axis mesh"):
+        simulator.run_fleet(_cfg(), [0], mesh=mesh2d, device=CPU)
 
 
 def test_fleet_bitwise_equals_batch_and_scan_uneven_chunked():
