@@ -97,7 +97,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    shape (cache 2080, valid_len 2079) global, on the local window's slice
    of the cache (the last 1024 positions) and at a ragged valid_len
    (1337); and B5 in bfloat16 once more at the local shape on transposed
-   views of (B, S, H, D) tensors, the layout the model hands in.
+   views of (B, S, H, D) tensors, the layout the model hands in.  The
+   zoo's cases (ZOO_FLASH_CASES, ZOO_DECODE_CASES): B5 without the causal
+   mask at the enc-dec's cross shape (B = 4, Hq = Hkv = 16, Sq 2048, Skv
+   1500, D = 64) and at Sq = Skv (its encoder), B5 bfloat16 at G = 5
+   (hymba's D = 64 with its window of 1024, llama4's D = 128) and G = 7
+   (qwen2-vl), B6 at llama4's decode shape (40/8, D = 128), hymba's
+   (25/5, D = 64, its window's slice) and qwen2-vl's (28/4), and the soft
+   cap c = 50 at gemma3-1b's local B5 and global B6 shapes (their
+   library call: torch.compile of flex_attention with the soft cap as its
+   score_mod, the window as its block mask; held to the plain version
+   within the case's tolerance).
    Tolerances are the JAX kernel tests' (rtol = atol = 2e-5 in float32,
    2e-2 in bfloat16).  Per case: kernel, profiler (the kernel's own name:
    flash_attention_wgmma_kernel for bf16 B5, flash_attention_kernel for
@@ -124,6 +134,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    MODEL_TOL at every step and the same tokens (a flip at a near-tie is
    reported with the CPU's top-2 gap and fails unless that gap is within
    2 atol);
+6z. the zoo path (slice 12): gemma-2b, gemma-7b, command-r-35b (every
+   layer, or the most that fit: the cut is printed), qwen2-vl-7b (256
+   vision-patch embeddings, (3, B, S) M-RoPE positions, through
+   serve.generate with its decode steps' positions),
+   seamless-m4t-large-v2 (through serve.main), hymba-1.5b
+   at full depth, llama4-maverick cut to one (dense, MoE) pair and
+   deepseek-v2 to its dense lead and 2 MoE layers (every width kept),
+   each in bfloat16 from a card-generator init in the compute dtype,
+   batch 4, prompt 2048, 16 greedy tokens after a warm-up serve of 512;
+   each serve its own counted path: exactly one B5 launch per layer and
+   one B6 per layer a step (the enc-dec: encoder + 2 x decoder B5, 2 x
+   decoder B6 a step; MLA layers none) and no other kernel, finite
+   logits, the cache filled to 2063, init, prefill and decode times, the
+   step's bytes over 3.35 TB/s, peak memory.  Then float32 parity as
+   phase 6 (ZOO_PARITY_CASES: full width cut to 2 layers, batch 2,
+   prompt 1024, 8 tokens in lockstep, weights drawn on the card): llama4
+   (one pair, 16 routed experts), deepseek (lead + 1 MoE, 32 routed
+   experts), hymba, seamless (a source of 1500 frames against the
+   1024-token prompt), qwen2-vl with vision and M-RoPE, command-r's
+   parallel block, gemma3-1b with the int8 cache (its CPU side adopting
+   the card's quanta behind a guard; its readings per call, and two
+   planted faults on the card -- B6 reading one key fewer in every layer
+   and in the last one only, k and v with relative noise of 1e-3 -- each
+   of which must fail it) and with the soft cap 50;
 7. the allocation paths, each driven with the launch counts set to 0 just
    before it and read just after:
    a. slice 1: run_scan episodes of coop (warm and cold), es, pp and ec
@@ -219,7 +253,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
 9. the kernels line: per kernel, its launches on the paths of phases 2b,
-   5 and 7 (summed; 7d, 7e and 7f must each launch each of B1-B4), its
+   5, 6z and 7 (summed; 7d, 7e and 7f must each launch each of B1-B4), its
    deviation, times and bound (B1 and B2 at 10 x
    45, B3 and B4 at the market shape); B7's row lists its
    two bf16 kernels under "parts" (a launch count is a call of both).
@@ -238,8 +272,8 @@ written to build/chip_smoke.jsonl.  The script needs a CUDA card and the
 repository's src/ beside it, and fails without either.
 TF32 is off for every float32 product (set in main and again in phase 6).
 Slice 4's phases (2a-2c) run right after the build and slice 3's (4-6)
-before the allocation paths, so a fault in either shows within the first
-minutes; a "seconds" line before the kernels line gives each phase's wall
+and slice 12's (6z) before the allocation paths, so a fault in any shows
+within the first minutes; a "seconds" line before the kernels line gives each phase's wall
 time.
 """
 from __future__ import annotations
@@ -306,6 +340,22 @@ DECODE_CASES = {"global": (4, 4, 1, 2080, 256, 2079, 0),
 # B5 on transposed views of (B, S, H, D) tensors, the layout the model
 # hands in (bf16 only; the float32 parity phase covers it end to end).
 SERVE_LAYOUT_CASES = {"local_serve_layout": (4, 4, 1, 2048, 256, 1024)}
+# Slice 12's cases, at the zoo path's shapes.  B5: (B, Hq, Hkv, Sq, Skv, D,
+# window, causal, softcap), the G = 5 and 7 ones in bf16 only; B6: (B, Hq,
+# Hkv, cache, D, valid_len, lo, softcap).
+ZOO_FLASH_CASES = {
+    "encdec_cross": (4, 16, 16, 2048, 1500, 64, 0, False, 0.0),
+    "encoder_self": (4, 16, 16, 2048, 2048, 64, 0, False, 0.0),
+    "hymba_g5_local": (4, 25, 5, 2048, 2048, 64, 1024, True, 0.0),
+    "llama4_g5": (4, 40, 8, 2048, 2048, 128, 0, True, 0.0),
+    "qwen2vl_g7": (4, 28, 4, 2048, 2048, 128, 0, True, 0.0),
+    "local_softcap50": (4, 4, 1, 2048, 2048, 256, 1024, True, 50.0)}
+BF16_ONLY = ("hymba_g5_local", "llama4_g5", "qwen2vl_g7")
+ZOO_DECODE_CASES = {
+    "llama4_g5": (4, 40, 8, 2080, 128, 2079, 0, 0.0),
+    "hymba_g5_local": (4, 25, 5, 2080, 64, 2079, 1055, 0.0),
+    "qwen2vl_g7": (4, 28, 4, 2080, 128, 2079, 0, 0.0),
+    "global_softcap50": (4, 4, 1, 2080, 256, 2079, 0, 50.0)}
 MAIN_CASE = "local"       # the kernels line: 22 of gemma3-1b's 26 layers
 SERVE = dict(arch="gemma3-1b", batch=4, prompt_len=2048, gen=32)
 PARITY = dict(n_layers=2, batch=2, prompt_len=2048, gen=8)
@@ -322,6 +372,37 @@ XLSTM_SERVE = dict(arch="xlstm-1.3b", batch=4, prompt_len=2048, gen=32,
 MLSTM_KERNELS = ("mlstm_states_kernel", "mlstm_outputs_kernel")
 BOUND_CHUNK = 64
 XLSTM_PARITY = dict(n_layers=8, batch=2, prompt_len=1024, gen=8)
+# The zoo path (slice 12): each arch served at full width in bf16, cut in
+# depth only where named (layers run), after a warm-up serve of a short
+# prompt; then float32 parity at full width cut to 2 layers.
+ZOO_SERVE = dict(batch=4, prompt_len=2048, gen=16, warmup_prompt_len=512)
+ZOO_ARCHS = {"gemma-2b": None, "gemma-7b": None, "command-r-35b": None,
+             "qwen2-vl-7b": None, "seamless-m4t-large-v2": None,
+             "hymba-1.5b": None,
+             "llama4-maverick-400b-a17b": 2,   # one (dense, MoE) pair
+             "deepseek-v2-236b": 3}            # the dense lead + 2 MoE
+ZOO_FIT_MARGIN_GB = 8.0   # left free beside weights and cache (activations)
+# The int8 parity's guard (adopting_card_quantization): card and CPU x /
+# scale that round apart must lie within QUANT_TIE quanta of each other,
+# and the scales within QUANT_SCALE_RTOL relative.
+QUANT_TIE = 0.02
+QUANT_SCALE_RTOL = 1e-4
+ZOO_PARITY = dict(n_layers=2, batch=2, prompt_len=1024, gen=8)
+# The enc-dec's source in the parity: frames of a length of their own, so
+# its cross-attention runs B5 over Skv != Sq and B6 up to valid_len 1500.
+ZOO_PARITY_SRC_LEN = 1500
+# (arch, label, config overrides) of the parity runs; routed experts cut
+# to fit two float32 copies (card and CPU) and the CPU's time
+ZOO_PARITY_CASES = (
+    ("llama4-maverick-400b-a17b", "llama4", dict(n_experts=16)),
+    ("deepseek-v2-236b", "deepseek", dict(n_experts=32)),
+    ("hymba-1.5b", "hymba", dict(global_every=2)),
+    ("seamless-m4t-large-v2", "seamless", dict(n_encoder_layers=2)),
+    ("qwen2-vl-7b", "qwen2-vl", {}),
+    ("command-r-35b", "command-r", {}),
+    ("gemma3-1b", "gemma3-int8", dict(global_every=2, kv_cache_dtype="int8")),
+    ("gemma3-1b", "gemma3-softcap50", dict(global_every=2,
+                                           logit_softcap=50.0)))
 SEEDED_SEED = 0           # the seed the card and the CPU both run
 
 
@@ -2800,8 +2881,12 @@ def auction_phase() -> dict:
 # The serve path of gemma3-1b: attention kernels, serving, parity.
 # ---------------------------------------------------------------------------
 
-def _live_pairs(s_len: int, window: int) -> int:
-    """(query, key) pairs the causal mask, and the window if > 0, keep."""
+def _live_pairs(s_len: int, window: int, causal: bool = True,
+                kv_len: int | None = None) -> int:
+    """(query, key) pairs the causal mask, and the window if > 0, keep;
+    without the causal mask every (query, key) pair."""
+    if not causal:
+        return s_len * (s_len if kv_len is None else kv_len)
     if window <= 0:
         return s_len * (s_len + 1) // 2
     w = min(window, s_len)
@@ -2834,11 +2919,15 @@ def _max_err(got, want, tol: float, label: str) -> float:
 
 
 def attention_row(name: str, case: str, dtype, kern, plain, library,
-                  work_ops: float, nbytes: float, names=()) -> dict:
+                  work_ops: float, nbytes: float, names=(),
+                  library_err: float | None = None) -> dict:
     """One attention case: the deviation from the plain version, the times,
     the bound, and the achieved rate of the resource that bounds the case
     (TFLOP/s of live work, or GB/s of the bytes the bound counts) with
-    bound_ms / ms, the kernel's share of its bound."""
+    bound_ms / ms, the kernel's share of its bound; ``library``: one
+    PyTorch call computing the same function, timed as library_ms
+    (``library_err``: its deviation from the plain version, where held
+    to it)."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     tol = ATTENTION_TOL[dtype]
@@ -2855,6 +2944,7 @@ def attention_row(name: str, case: str, dtype, kern, plain, library,
                                              min_records=1),
            "wrapper_ms": event_ms(kern), "plain_ms": event_ms(plain),
            "library_ms": device_ms(library),
+           "library_max_abs_err": library_err,
            "bound_ms": bound_ms, "bound_by": bound_by, **rate,
            "share_of_bound": bound_ms / ms,
            "gflop": work_ops / 1e9, "mbytes": nbytes / 1e6}
@@ -2862,8 +2952,38 @@ def attention_row(name: str, case: str, dtype, kern, plain, library,
     return row
 
 
+_FLEX: dict = {}
+
+
+def flex_softcap(q, k, v, cap: float, window: int):
+    """The soft-cap cases' library call: ``torch.compile`` of FlexAttention
+    with c tanh(s / c) of the scaled logits as its score_mod and, where
+    ``window``, the causal window as its block mask (else every key:
+    decode's live slice).  The port never calls it."""
+    from torch.nn.attention import flex_attention as fa
+
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(fa.flex_attention, dynamic=False)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    mask = None
+    if window:
+        def in_window(b, h, q_idx, kv_idx):
+            return (q_idx >= kv_idx) & (q_idx - kv_idx < window)
+        mask = fa.create_block_mask(in_window, None, None, q.shape[2],
+                                    k.shape[2], device=q.device)
+    return lambda: _FLEX["fn"](q, k, v, score_mod=score_mod,
+                               block_mask=mask, enable_gqa=True)
+
+
 def attention_phase() -> dict:
-    """Phase 4: B5 and B6 against their plain versions on the card."""
+    """Phase 4: B5 and B6 against their plain versions on the card: slice
+    3's cases (FLASH_CASES, DECODE_CASES, SERVE_LAYOUT_CASES) and the zoo's
+    (ZOO_FLASH_CASES, ZOO_DECODE_CASES: B5 without the causal mask over
+    Skv != Sq and Sq = Skv, B5 and B6 at groups 5 and 7, the soft cap at
+    gemma3-1b's shapes, whose c = 0 twins are "local" and "global")."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -2874,45 +2994,70 @@ def attention_phase() -> dict:
     rows = {}
     flash_kernel = {torch.bfloat16: "flash_attention_wgmma_kernel",
                     torch.float32: "flash_attention_kernel"}
+    # (B, Hq, Hkv, Sq, Skv, D, window, causal, softcap) and (B, Hq, Hkv,
+    # cache, D, valid_len, lo, softcap)
+    flash_cases = {case: (b, hq, hkv, s, s, d, w, True, 0.0) for case, (
+        b, hq, hkv, s, d, w) in {**FLASH_CASES, **SERVE_LAYOUT_CASES}.items()}
+    flash_cases.update(ZOO_FLASH_CASES)
+    decode_cases = {case: (*shape, 0.0) for case, shape in
+                    DECODE_CASES.items()}
+    decode_cases.update(ZOO_DECODE_CASES)
     for dtype in (torch.bfloat16, torch.float32):
         elt = torch.finfo(dtype).bits // 8
-        cases = dict(FLASH_CASES)
-        if dtype == torch.bfloat16:
-            cases.update(SERVE_LAYOUT_CASES)
-        for case, (b, hq, hkv, s_len, d, window) in cases.items():
+        for case, (b, hq, hkv, sq, skv, d, window, causal,
+                   cap) in flash_cases.items():
+            if (case in SERVE_LAYOUT_CASES or case in BF16_ONLY) and \
+                    dtype != torch.bfloat16:
+                continue
             if case in SERVE_LAYOUT_CASES:   # (B, S, H, D) -> (B, H, S, D)
                 q, k, v = (x.transpose(1, 2) for x in _heads(
-                    gen, dtype, (b, s_len, hq, d), (b, s_len, hkv, d),
-                    (b, s_len, hkv, d)))
+                    gen, dtype, (b, sq, hq, d), (b, skv, hkv, d),
+                    (b, skv, hkv, d)))
             else:
-                q, k, v = _heads(gen, dtype, (b, hq, s_len, d),
-                                 (b, hkv, s_len, d), (b, hkv, s_len, d))
-            mask = _sdpa_mask(s_len, window) if window else None
+                q, k, v = _heads(gen, dtype, (b, hq, sq, d),
+                                 (b, hkv, skv, d), (b, hkv, skv, d))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            mask = _sdpa_mask(sq, window) if window else None
+            library_err = None
+            if cap:
+                library = flex_softcap(q, k, v, cap, window)
+                library_err = _max_err(
+                    library(), flash_attention_plain(q, k, v, **kw),
+                    ATTENTION_TOL[dtype], f"flex/{case}/{dtype}")
+            else:
+                library = (lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True))
             rows["flash_attention", case, dtype] = attention_row(
                 "flash_attention", case, dtype,
-                lambda: ops.attention(q, k, v, causal=True, window=window),
-                lambda: flash_attention_plain(q, k, v, causal=True,
-                                              window=window),
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True),
-                4.0 * d * b * hq * _live_pairs(s_len, window),
-                elt * (2 * b * hq * s_len * d + 2 * b * hkv * s_len * d),
-                names=(flash_kernel[dtype],))
-        for case, (b, hq, hkv, cache, d, valid, lo) in DECODE_CASES.items():
+                lambda: ops.attention(q, k, v, **kw),
+                lambda: flash_attention_plain(q, k, v, **kw), library,
+                4.0 * d * b * hq * _live_pairs(sq, window, causal, skv),
+                elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d),
+                names=(flash_kernel[dtype],), library_err=library_err)
+        for case, (b, hq, hkv, cache, d, valid, lo,
+                   cap) in decode_cases.items():
             q, k, v = _heads(gen, dtype, (b, hq, d), (b, cache, hkv, d),
                              (b, cache, hkv, d))
             kw, vw, n = k[:, lo:valid], v[:, lo:valid], valid - lo
             kt, vt = kw.transpose(1, 2), vw.transpose(1, 2)
+            library_err = None
+            if cap:
+                library = flex_softcap(q[:, :, None], kt, vt, cap, 0)
+                library_err = _max_err(
+                    library()[:, :, 0], decode_attention_plain(
+                        q, kw, vw, n, softcap=cap),
+                    ATTENTION_TOL[dtype], f"flex/{case}/{dtype}")
+            else:
+                library = (lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kt, vt, enable_gqa=True))
             rows["decode_attention", case, dtype] = attention_row(
                 "decode_attention", case, dtype,
-                lambda: ops.attention_decode(q, kw, vw, n),
-                lambda: decode_attention_plain(q, kw, vw, n),
-                lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], kt, vt, enable_gqa=True),
-                4.0 * d * b * hq * n,
+                lambda: ops.attention_decode(q, kw, vw, n, softcap=cap),
+                lambda: decode_attention_plain(q, kw, vw, n, softcap=cap),
+                library, 4.0 * d * b * hq * n,
                 elt * (2 * b * hq * d + 2 * b * hkv * n * d),
-                names=("decode_attention_kernel",))
+                names=("decode_attention_kernel",), library_err=library_err)
     return rows
 
 
@@ -3017,28 +3162,45 @@ def prefill_profile(model, params, prompts, max_len: int,
 
 
 def lockstep_parity(label: str, cfg, batch: int, prompt_len: int,
-                    gen: int) -> dict:
+                    gen: int, extra: dict | None = None, decode_kw=None,
+                    card_init: bool = False, side: dict | None = None
+                    ) -> dict:
     """The kernel path on the card against the plain path on the CPU: one
     float32 parameter set on both, prefill then greedy decode in lockstep
     (both sides take the CPU's token).  Last-position logits within
     MODEL_TOL at every step; a token that differs is reported with the
     CPU's top-2 gap and fails unless that gap is within 2 atol (a near
-    tie)."""
+    tie).  ``extra``: more prefill inputs (CPU tensors: positions, frontend
+    embeddings); ``decode_kw(step)``: a decode step's keyword arguments (CPU
+    tensors); ``card_init``: draw the weights on a card generator seeded 0
+    and copy them to the CPU (seconds, where the CPU's draws of a
+    full-width layer take minutes); ``side["now"]`` is set to "card" or
+    "cpu" before each side's call."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = registry.build_model(cfg)
-    cpu_params = model.init(0, device="cpu")
-    card_params = _to_device(cpu_params)
+    if card_init:
+        card_params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                                 device=DEVICE)
+        cpu_params = _to_device(card_params, "cpu")
+    else:
+        cpu_params = model.init(0, device="cpu")
+        card_params = _to_device(cpu_params)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(3))
-    runs = {"card": (card_params, prompts.to(DEVICE)),
-            "cpu": (cpu_params, prompts)}
+    extra = extra or {}
+    runs = {"card": (card_params, {"tokens": prompts, **extra}),
+            "cpu": (cpu_params, {"tokens": prompts, **extra})}
+    side = {} if side is None else side
     state = {}
-    for dev, (params, toks) in runs.items():
-        state[dev] = model.prefill(params, {"tokens": toks},
+    for dev, (params, inputs) in runs.items():
+        side["now"] = dev
+        where = DEVICE if dev == "card" else "cpu"
+        state[dev] = model.prefill(params, {k: x.to(where)
+                                            for k, x in inputs.items()},
                                    max_len=prompt_len + gen)
     steps, flips = [], []
     for step in range(gen + 1):
@@ -3063,9 +3225,13 @@ def lockstep_parity(label: str, cfg, batch: int, prompt_len: int,
                                      f"differ at row {int(row)} with a top-2 "
                                      f"gap of {gap}")
         tok = toks["cpu"]
+        kw = decode_kw(prompt_len + step) if decode_kw else {}
         for dev, (params, _) in runs.items():
-            state[dev] = model.decode_step(params, state[dev][1],
-                                           tok.to(state[dev][0].device))
+            side["now"] = dev
+            where = state[dev][0].device
+            state[dev] = model.decode_step(
+                params, state[dev][1], tok.to(where),
+                **{k: x.to(where) for k, x in kw.items()})
     row = {"arch": cfg.name, "dtype": "float32", "n_layers": cfg.n_layers,
            "batch": batch, "prompt_len": prompt_len, "gen": gen,
            "rtol": MODEL_TOL, "atol": MODEL_TOL, "max_dev_per_step": steps,
@@ -3462,12 +3628,352 @@ def xlstm_parity_phase() -> dict:
     return row
 
 
-def _to_device(tree):
+# ---------------------------------------------------------------------------
+# The zoo path (slice 12): the rest of the model zoo served at full width.
+# ---------------------------------------------------------------------------
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+
+def zoo_config(arch: str):
+    """The arch's public config, cut in depth where ZOO_ARCHS says, and for
+    command-r to the most layers whose bf16 weights and cache leave
+    ZOO_FIT_MARGIN_GB of the card free (every layer, where they fit).
+    Returns (config, cut note or None)."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cfg = configs.get_config(arch)
+    keep = ZOO_ARCHS[arch]
+    if keep is None:
+        torch.cuda.empty_cache()
+        model = registry.build_model(cfg)
+        meta = model.init(0, device="meta", dtype=cfg.compute_dtype)
+        blocks = meta.get("blocks") or meta.get("dec_blocks")
+        per_layer = _nbytes(blocks) / len(blocks)
+        rest = _nbytes(meta) - _nbytes(blocks)
+        b, s = ZOO_SERVE["batch"], ZOO_SERVE["prompt_len"] + ZOO_SERVE["gen"]
+        cache = model.init_cache(b, s, *([s] if cfg.family == "encdec"
+                                         else []), device="meta")
+        per_cache = _nbytes({k: v for k, v in cache.items()
+                             if k != "len"}) / cfg.n_layers
+        free = torch.cuda.mem_get_info()[0] - ZOO_FIT_MARGIN_GB * 1e9
+        keep = min(cfg.n_layers, int((free - rest) // (per_layer + per_cache)))
+        if keep < 1:
+            raise AssertionError(f"zoo {arch}: no layer fits the card")
+    if keep == cfg.n_layers:
+        return cfg, None
+    cut = f"{keep} of {cfg.n_layers} layers (every width kept)"
+    return dataclasses.replace(cfg, n_layers=keep), cut
+
+
+def zoo_batch(cfg, batch: int, prompt_len: int, seed: int = 1,
+              src_len: int | None = None) -> dict:
+    """Prompts from a CPU generator seeded ``seed``; M-RoPE's (3, B, S)
+    positions (the text's: arange in all three streams); the vision stub's
+    N_VISION_PATCHES patch embeddings or the audio stub's ``src_len``
+    frames (prompt_len where None, as serve draws them), standard normals
+    x 0.1 from the same generator."""
+    from repro_torch.models import registry
+
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen)
+    out = {"tokens": tokens}
+    if cfg.mrope_sections:
+        out["positions"] = torch.arange(prompt_len, dtype=torch.int32)[
+            None, None].expand(3, batch, prompt_len).contiguous()
+    n_frames = {"vision": registry.N_VISION_PATCHES,
+                "audio": src_len or prompt_len}.get(cfg.frontend)
+    if n_frames:
+        out["frontend_embeds"] = 0.1 * torch.randn(
+            (batch, n_frames, cfg.d_model), generator=gen)
+    return out
+
+
+def _mrope_decode_kw(cfg, batch: int):
+    """A decode step's keyword arguments: M-RoPE's position of the token
+    fed at ``pos``, the same in all three streams; nothing otherwise."""
+    if not cfg.mrope_sections:
+        return None
+    return lambda pos: {"positions": torch.full((3, batch, 1), pos,
+                                                dtype=torch.int32)}
+
+
+def zoo_generate(model, params, batch: dict, gen: int) -> tuple:
+    """``serve.generate``, greedy, with M-RoPE's decode positions where the
+    config has them (``decode_kw``)."""
+    from repro_torch.launch import serve
+
+    b, p = batch["tokens"].shape
+    return serve.generate(model, params,
+                          {k: x.to(DEVICE) for k, x in batch.items()},
+                          max_len=p + gen, gen=gen, temperature=0.0,
+                          generator=torch.Generator(),
+                          decode_kw=_mrope_decode_kw(model.cfg, b))
+
+
+def zoo_expected_launches(cfg, gen: int) -> dict:
+    """B5 once a layer's whole-sequence attention and B6 once a layer's
+    decode attention; MLA's layers launch neither; the enc-dec's encoder,
+    decoder self and cross-attention each run B5 at prefill, its self and
+    cross-attention each B6 a step."""
+    out = {name: 0 for name in KERNELS}
+    steps = gen - 1
+    if cfg.family == "encdec":
+        out["flash_attention"] = cfg.n_encoder_layers + 2 * cfg.n_layers
+        out["decode_attention"] = 2 * cfg.n_layers * steps
+    elif cfg.family != "mla_moe":
+        out["flash_attention"] = cfg.n_layers
+        out["decode_attention"] = cfg.n_layers * steps
+    return out
+
+
+def zoo_serve(arch: str) -> dict:
+    """One arch served in bf16 at full width (ZOO_SERVE): weights drawn on
+    a card generator in the compute dtype (init_s), a warm-up serve of a
+    short prompt, then the counted serve (its own path, ``zoo:<arch>``):
+    seamless through ``serve.main`` (its CPU-drawn init inside), the others
+    through ``zoo_generate``.  Checks the launches, finite logits and the
+    cache length; the decode step against the bytes it must read (every
+    parameter once -- the MoE layers' every expert, as the grouped product
+    reads them -- but the encoder's, and the whole cache) over 3.35 TB/s."""
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg, cut = zoo_config(arch)
+    b, p, gen = ZOO_SERVE["batch"], ZOO_SERVE["prompt_len"], ZOO_SERVE["gen"]
+    model = registry.build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE, dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    zoo_generate(model, params, zoo_batch(cfg, b, ZOO_SERVE[
+        "warmup_prompt_len"]), 2)
+    batch = zoo_batch(cfg, b, p)
+    if cfg.family == "encdec":
+        del params
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cfg.family == "encdec":
+        argv = ["--arch", arch, "--no-reduced", "--batch", str(b),
+                "--prompt-len", str(p), "--gen", str(gen), "--temperature",
+                "0", "--device", DEVICE]
+        res = drive_path(f"zoo:{arch}", lambda: serve.main(argv), keep=True)
+        out, info, params = res["tokens"], res["info"], res["params"]
+    else:
+        out, info = drive_path(f"zoo:{arch}", lambda: zoo_generate(
+            model, params, batch, gen), keep=True)
+    wall = time.perf_counter() - t0
+    want = zoo_expected_launches(cfg, gen)
+    if PATH_LAUNCHES[f"zoo:{arch}"] != want:
+        raise AssertionError(f"zoo {arch} launched "
+                             f"{PATH_LAUNCHES[f'zoo:{arch}']}, expected {want}")
+    if out.shape != (b, gen) or info["cache"]["len"] != p + gen - 1:
+        raise AssertionError(f"zoo {arch}: tokens {tuple(out.shape)}, cache "
+                             f"len {info['cache']['len']}, expected "
+                             f"({b}, {gen}) and {p + gen - 1}")
+    if not (bool(torch.isfinite(info["logits"]).all())
+            and bool(torch.isfinite(info["prefill_logits"]).all())):
+        raise AssertionError(f"zoo {arch}: non-finite logits")
+    read = {k: v for k, v in params.items() if k != "enc_blocks"}
+    step_bytes = _nbytes(read) + _nbytes(
+        {k: v for k, v in info["cache"].items() if k != "len"})
+    decode_ms = 1e3 * info["t_decode"] / info["decode_steps"]
+    row = {"arch": arch, "cut": cut, "n_layers": cfg.n_layers,
+           "dtype": "bfloat16", "batch": b, "prompt_len": p, "gen": gen,
+           "params_b": sum(x.numel() for x in _leaves(params)) / 1e9,
+           "weights_gb": _nbytes(params) / 1e9,
+           "init_s": init_s if cfg.family != "encdec" else None,
+           "serve_wall_s": wall, "prefill_s": info["t_prefill"],
+           "decode_steps": info["decode_steps"],
+           "decode_ms_per_step": decode_ms,
+           "decode_step_bytes_gb": step_bytes / 1e9,
+           "decode_bound_ms": 1e3 * step_bytes / PEAK_BYTES,
+           "decode_share_of_bound": 1e3 * step_bytes / PEAK_BYTES / decode_ms,
+           "cache_len": info["cache"]["len"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": PATH_LAUNCHES[f"zoo:{arch}"]}
+    emit({"phase": "zoo_serve", **row})
+    del params, info, out
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def adopting_card_quantization(stats: list, card_fault=None):
+    """Within: the int8 cache's quantization (``transformer._quantize_kv``)
+    of each CPU call returns what the card's matching call returned (the
+    side of each call is the ``"now"`` of the yielded dict, which
+    ``lockstep_parity(side=...)`` sets; card first), as the lockstep takes
+    the CPU's token.  The two devices' float32 k and v differ in their
+    last bits (layer 1's inherit layer 0's deviations, and a row's scale
+    is its largest |x| / 127, so the scales differ as those do), and where
+    x / scale sits near a half the two round to different int8 values: one
+    such quantum moves a logit by up to ~1e-3 (a 1e-7 relative change of
+    layer 0's k and v projections moved gemma3-1b's logits by 5.5e-4 on a
+    CPU), far past MODEL_TOL.  Each CPU call's own result is compared
+    first: the scales must agree within QUANT_SCALE_RTOL relative, and
+    every quantum that differs must be one where the two devices' x /
+    scale lie within QUANT_TIE of each other (so a half lies between
+    them), or it raises.  Per call, ``stats`` gets the differing quanta,
+    the scales' largest relative gap, and the largest |card - CPU| of x /
+    scale over all entries and over the differing ones.  ``card_fault(x)``
+    (a planted fault): what the card's calls quantize instead of x."""
+    from repro_torch.models import transformer
+
+    own = transformer._quantize_kv
+    pending: list = []
+    side = {"now": None}
+
+    def quantize(x):
+        if side["now"] == "card":
+            x = x if card_fault is None else card_fault(x)
+            q, scale = own(x)
+            pending.append((q, scale, x.float() / scale[..., None]))
+            return q, scale
+        q, scale = own(x)
+        card_q, card_scale, card_y = (t.cpu() for t in pending.pop(0))
+        rel = float(((card_scale - scale).abs() / scale).max())
+        gap = (card_y - x.float() / scale[..., None]).abs()
+        diff = card_q != q
+        flip_gap = float(gap[diff].max()) if diff.any() else 0.0
+        if rel > QUANT_SCALE_RTOL or flip_gap > QUANT_TIE:
+            raise AssertionError(
+                f"int8 quantization differs beyond a half-quantum tie: "
+                f"scales {rel}, {int(diff.sum())} quanta, largest gap "
+                f"{flip_gap}")
+        stats.append({"flips": int(diff.sum()), "scale_rel": rel,
+                      "y_gap": float(gap.max()), "flip_gap": flip_gap})
+        return card_q, card_scale
+
+    transformer._quantize_kv = quantize
+    try:
+        yield side
+    finally:
+        transformer._quantize_kv = own
+
+
+def zoo_parity_case(arch: str, label: str, change: dict,
+                    card_fault=None, card_decode=None) -> dict:
+    """One ZOO_PARITY_CASES entry: the arch at full width cut to 2 layers
+    in float32, the kernel path on the card against the plain path on the
+    CPU in lockstep (``lockstep_parity``, weights drawn on the card), with
+    the model's frontend inputs and M-RoPE positions; the int8 cache's
+    CPU run adopts the card's quanta (``adopting_card_quantization``, with
+    ``card_fault``).  ``card_decode(own, *args, **kw)`` (a planted fault)
+    takes the card side's B6 calls, ``own`` being ``ops.attention_decode``."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=ZOO_PARITY["n_layers"],
+                              dtype="float32", **change)
+    b, p = ZOO_PARITY["batch"], ZOO_PARITY["prompt_len"]
+    extra = {k: x for k, x in zoo_batch(
+        cfg, b, p, src_len=ZOO_PARITY_SRC_LEN).items() if k != "tokens"}
+    t0 = time.perf_counter()
+    stats: list = []
+    own_decode = ops.attention_decode
+    with (adopting_card_quantization(stats, card_fault)
+          if cfg.kv_cache_dtype == "int8"
+          else contextlib.nullcontext({})) as side:
+        if card_decode is not None:
+            ops.attention_decode = lambda *args, **kw: (
+                card_decode(own_decode, *args, **kw) if side["now"] == "card"
+                else own_decode(*args, **kw))
+        try:
+            row = lockstep_parity(f"zoo parity {label}", cfg, b, p,
+                                  ZOO_PARITY["gen"], extra=extra,
+                                  decode_kw=_mrope_decode_kw(cfg, b),
+                                  card_init=True, side=side)
+        finally:
+            ops.attention_decode = own_decode
+    row.update(label=label, overrides=change,
+               seconds=time.perf_counter() - t0)
+    if "frontend_embeds" in extra:
+        row["frontend_len"] = extra["frontend_embeds"].shape[1]
+    if cfg.kv_cache_dtype == "int8":
+        row.update(quant_calls=len(stats),
+                   quant_flips=sum(c["flips"] for c in stats),
+                   **{f"quant_{key}_max": max(c[key] for c in stats)
+                      for key in ("scale_rel", "y_gap", "flip_gap")})
+    torch.cuda.empty_cache()
+    return row
+
+
+def int8_planted_faults(arch: str, change: dict) -> list:
+    """The int8 parity with a fault planted on the card, each of which must
+    fail it (the quantization guard or MODEL_TOL) although the CPU adopts
+    the card's quanta: B6 reading one key fewer (its own token's key) in
+    every layer, and in the last layer only (whose output no quantization
+    sees, so MODEL_TOL alone can catch it), and the card's k and v with
+    relative noise of 1e-3 before they are quantized (about TF32's
+    rounding of the projections)."""
+    def one_key_fewer(every: int):
+        calls = [0]
+
+        def decode(own, q, k, v, valid_len, **kw):
+            calls[0] += 1
+            return own(q, k, v, valid_len - (calls[0] % every == 0), **kw)
+        return decode
+
+    def noisy(x):
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        return x * (1 + 1e-3 * torch.randn(x.shape, generator=gen,
+                                           device=x.device))
+
+    faults = {"b6_one_key_fewer": {"card_decode": one_key_fewer(1)},
+              "b6_one_key_fewer_last_layer": {
+                  "card_decode": one_key_fewer(ZOO_PARITY["n_layers"])},
+              "card_kv_noise_1e-3": {"card_fault": noisy}}
+    rows = []
+    for name, fault in faults.items():
+        try:
+            zoo_parity_case(arch, f"planted {name}", change, **fault)
+            caught = None
+        except AssertionError as err:
+            caught = str(err)[:200]
+        row = {"fault": name, "failed_with": caught}
+        emit({"phase": "int8_planted_fault", **row})
+        if caught is None:
+            raise AssertionError(f"int8 parity passed with the planted "
+                                 f"fault {name}")
+        rows.append(row)
+    return rows
+
+
+def zoo_parity() -> list:
+    """Float32 parity of each new family and feature (ZOO_PARITY_CASES),
+    then the int8 case's planted faults."""
+    rows = []
+    for arch, label, change in ZOO_PARITY_CASES:
+        row = zoo_parity_case(arch, label, change)
+        emit({"phase": "zoo_parity", **row})
+        rows.append(row)
+        if change.get("kv_cache_dtype") == "int8":
+            row["planted_faults"] = int8_planted_faults(arch, change)
+    return rows
+
+
+def zoo_phase() -> dict:
+    """The zoo path: every arch of ZOO_ARCHS served (each its own counted
+    path), then the float32 parity."""
+    serves = {arch: zoo_serve(arch) for arch in ZOO_ARCHS}
+    return {"serve": serves, "parity": zoo_parity()}
+
+
+def _to_device(tree, device=None):
     if isinstance(tree, list):
-        return [_to_device(x) for x in tree]
+        return [_to_device(x, device) for x in tree]
     if isinstance(tree, dict):
-        return {key: _to_device(x) for key, x in tree.items()}
-    return tree.to(DEVICE)
+        return {key: _to_device(x, device) for key, x in tree.items()}
+    return tree.to(device or DEVICE)
 
 
 def card_info() -> tuple[str, str]:
@@ -3539,9 +4045,15 @@ def main() -> int:
     parity_phase()
     clock["parity"] = time.perf_counter()
 
+    # --- the zoo path: the rest of the zoo's serve paths -------------------
+    zoo_phase()
+    clock["zoo"] = time.perf_counter()
+
     paths = {"xlstm_serve": PATH_LAUNCHES["xlstm_serve"],
              "xlstm_forward": PATH_LAUNCHES["xlstm_forward"],
              "serve": PATH_LAUNCHES["serve"],
+             **{f"zoo:{arch}": PATH_LAUNCHES[f"zoo:{arch}"]
+                for arch in ZOO_ARCHS},
              "slice1": drive_path("slice1", path_slice1),
              "selfish": drive_path("selfish", path_selfish),
              "run_batch": drive_path("run_batch", batch_pair)}

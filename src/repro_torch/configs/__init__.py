@@ -1,6 +1,5 @@
 """Architecture registry: the JAX package's ten names, with the exact public
-config of each ported one and its reduced smoke variant for CPU tests.
-gemma3-1b and xlstm-1.3b are ported; the other names raise."""
+config of each and its reduced smoke variant for CPU tests."""
 from __future__ import annotations
 
 import importlib
@@ -9,14 +8,14 @@ from repro_torch.models.config import ModelConfig, reduced
 
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
-    "gemma-2b": None,
-    "gemma-7b": None,
-    "command-r-35b": None,
-    "qwen2-vl-7b": None,
-    "seamless-m4t-large-v2": None,
-    "llama4-maverick-400b-a17b": None,
-    "deepseek-v2-236b": None,
-    "hymba-1.5b": None,
+    "gemma-2b": "gemma_2b",
+    "gemma-7b": "gemma_7b",
+    "command-r-35b": "command_r_35b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "hymba-1.5b": "hymba_1_5b",
     "xlstm-1.3b": "xlstm_1_3b",
 }
 
@@ -26,8 +25,6 @@ ARCH_NAMES = list(_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
-    if _MODULES[name] is None:
-        raise NotImplementedError(f"arch {name!r} is not yet ported")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
 

@@ -4,8 +4,10 @@
 // Replaces the Pallas TPU kernel _decode_kernel / decode_attention in
 // src/repro/kernels/decode_attention.py.  out[b, h] = sum_{j < valid_len}
 // p_j v[b, j, h/G] with p = softmax_j(q[b, h] . k[b, j, h/G] / sqrt(D)); G =
-// Hq / Hkv query heads share one KV head.  No window: a caller with a
-// sliding window hands in the window's slice of the cache.
+// Hq / Hkv query heads share one KV head, any G from 1 to 8.  With a soft
+// cap c > 0 the logit x = q . k / sqrt(D) becomes c tanh(x / c) first.  No
+// window: a caller with a sliding window hands in the window's slice of
+// the cache.
 //
 // Layouts: q (B, Hq, D), k and v (B, S, Hkv, D) (the cache's own layout),
 // out (B, Hq, D), each read through its strides with the head dim
@@ -26,14 +28,17 @@
 //   cp.async copies into shared memory (up to 64 KB a round), all K rows
 //   first, so the scores and the softmax run while V still arrives.
 // - Scores: L lanes share a row, each holding E = max(16 / sizeof(T),
-//   min(D, 64 / G)) of its dims (16-byte chunks L apart) and the G query
+//   min(D, 2^floor(log2(64 / G)))) of its dims (16-byte chunks L apart;
+//   a power of two, so L = D / E is one too) and the G query
 //   heads' matching q in registers, so a (key, head) dot reduces over
 //   log2(L) shuffles (4 at D = 256, G = 4, not 5) and 32 / L rows share
 //   each shuffle.
 //   Scores go to shared memory in log2 units (scale log2(e) folded in);
 //   one warp per head takes the round's max and exp2f.
-// - P V: each thread owns G D / 128 consecutive (head, dim) outputs and
-//   sweeps the round's rows of V in shared memory; no merge across warps.
+// - P V: each thread owns G D / 128 consecutive (head, dim) outputs,
+//   rounded up to a power of two (so they lie in one head; G = 3, 5, 6, 7
+//   leave some threads idle here), and sweeps the round's rows of V in
+//   shared memory; no merge across warps.
 // - Combine in the same launch: each block writes its float32 partial (m,
 //   l, acc per query head); after a block barrier one thread fences and
 //   takes a ticket on the (batch, KV head)'s int32 counter.  One block
@@ -65,6 +70,7 @@ constexpr int kMaxRows = 128;            // rows per round at most
 constexpr int kMaxSplits = 256;          // splits per (batch, KV head)
 constexpr int kMergers = 8;              // blocks that merge the partials
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -110,18 +116,28 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+constexpr int pow2_floor(int x) { return x < 2 ? 1 : 2 * pow2_floor(x / 2); }
+constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
+
+// Every count below is a power of two for any G from 1 to 8, so a lane's
+// chunks tile a row and a thread's outputs never straddle two heads.
 template <typename T, int D, int G>
 struct DecodeShape {
   static constexpr int kVec = 16 / sizeof(T);          // elements a chunk
   static constexpr int kE =                            // elements a lane
-      (64 / G < kVec) ? kVec : (64 / G > D ? D : 64 / G);
+      pow2_floor(64 / G) < kVec ? kVec
+                                : (pow2_floor(64 / G) > D ? D
+                                                          : pow2_floor(64 / G));
   static constexpr int kLanes = D / kE;                // lanes a row
   static constexpr int kSlots = kThreads / kLanes;     // rows in parallel
   static constexpr int kRowBytes = D * sizeof(T);
   static constexpr int kRows = kRoundBytes / (2 * kRowBytes) > kMaxRows
                                    ? kMaxRows
                                    : kRoundBytes / (2 * kRowBytes);
-  static constexpr int kOut = (G * D + kThreads - 1) / kThreads;  // per thread
+  static constexpr int kOut =                          // outputs a thread
+      pow2_ceil((G * D + kThreads - 1) / kThreads);
 };
 
 // Merge the flat (head, dim) outputs [f_lo, f_lo + per) of (batch x KV
@@ -212,7 +228,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         long long q_sh, long long k_sb, long long k_ss,
                         long long k_sh, long long v_sb, long long v_ss,
                         long long v_sh, long long o_sb, long long o_sh,
-                        float scale_log2) {
+                        float scale_log2, float cap_pre, float cap_post) {
   using S = DecodeShape<T, D, G>;
   constexpr int kE = S::kE, kLanes = S::kLanes, kOut = S::kOut;
   extern __shared__ uint4 kv_raw[];   // this round's K rows, then V rows
@@ -295,9 +311,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int gi = 0; gi < G; ++gi)
           dot[gi] += __shfl_xor_sync(~0u, dot[gi], o);
+      // Soft-capped logits (cap_post > 0): cap tanh(logit / cap), in log2
+      // units: cap_pre = scale / cap, cap_post = cap log2(e).
       if (r < n && part_lane == 0)
 #pragma unroll
-        for (int gi = 0; gi < G; ++gi) p_s[r][gi] = dot[gi] * scale_log2;
+        for (int gi = 0; gi < G; ++gi)
+          p_s[r][gi] = cap_post > 0.f ? cap_post * tanhf(dot[gi] * cap_pre)
+                                      : dot[gi] * scale_log2;
     }
     __syncthreads();
 
@@ -405,7 +425,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* part, int* counters, int b, int hkv, int valid_len,
-           int n_splits, const long long* st, float scale,
+           int n_splits, const long long* st, float scale, float softcap,
            cudaStream_t stream) {
   using S = DecodeShape<T, D, G>;
   if (n_splits < 1 || n_splits > kMaxSplits || n_splits > valid_len)
@@ -421,23 +441,28 @@ int launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), part, counters, hkv,
       valid_len, n_splits, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], scale * 1.4426950408889634f);
+      st[7], st[8], st[9], scale * kLog2e,
+      softcap > 0.f ? scale / softcap : 0.f, softcap * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_g(int g, const void* q, const void* k, const void* v, void* out,
              float* part, int* counters, int b, int hkv, int valid_len,
-             int n_splits, const long long* st, float scale,
+             int n_splits, const long long* st, float scale, float softcap,
              cudaStream_t stream) {
   switch (g) {
 #define REPRO_CASE(G)                                                      \
   case G:                                                                  \
     return launch<T, D, G>(q, k, v, out, part, counters, b, hkv,           \
-                           valid_len, n_splits, st, scale, stream);
+                           valid_len, n_splits, st, scale, softcap, stream);
     REPRO_CASE(1)
     REPRO_CASE(2)
+    REPRO_CASE(3)
     REPRO_CASE(4)
+    REPRO_CASE(5)
+    REPRO_CASE(6)
+    REPRO_CASE(7)
     REPRO_CASE(8)
 #undef REPRO_CASE
     default:
@@ -449,12 +474,12 @@ template <typename T>
 int launch_dg(int d, int g, const void* q, const void* k, const void* v,
               void* out, float* part, int* counters, int b, int hkv,
               int valid_len, int n_splits, const long long* st, float scale,
-              cudaStream_t stream) {
+              float softcap, cudaStream_t stream) {
   switch (d) {
 #define REPRO_CASE(D)                                                      \
   case D:                                                                  \
     return launch_g<T, D>(g, q, k, v, out, part, counters, b, hkv,         \
-                          valid_len, n_splits, st, scale, stream);
+                          valid_len, n_splits, st, scale, softcap, stream);
     REPRO_CASE(32)
     REPRO_CASE(64)
     REPRO_CASE(128)
@@ -468,9 +493,10 @@ int launch_dg(int d, int g, const void* q, const void* k, const void* v,
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16; scale is 1 / sqrt(D) rounded to
-// float32.  Strides in elements: q (batch, head), k and v (batch, position,
-// head), out (batch, head); the head dim is contiguous, rows 16-byte
-// aligned.  1 <= n_splits <= min(valid_len, 256); scratch holds
+// float32; softcap > 0 caps the scaled logits at softcap tanh(x / softcap)
+// (0: off).  1 <= g <= 8.  Strides in elements: q (batch, head), k and v
+// (batch, position, head), out (batch, head); the head dim is contiguous,
+// rows 16-byte aligned.  1 <= n_splits <= min(valid_len, 256); scratch holds
 // b hkv n_splits g (d + 2) floats; counters 2 b hkv int32 zeros, left
 // zero.
 extern "C" int decode_attention_launch(
@@ -479,7 +505,7 @@ extern "C" int decode_attention_launch(
     int n_splits, long long q_sb, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_sh, float scale,
-    void* stream) {
+    float softcap, void* stream) {
   const long long st[10] = {q_sb, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_sh};
   float* part = static_cast<float*>(scratch);
@@ -487,10 +513,11 @@ extern "C" int decode_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return repro::launch_dg<float>(d, g, q, k, v, out, part, count, b, hkv,
-                                   valid_len, n_splits, st, scale, s);
+                                   valid_len, n_splits, st, scale, softcap,
+                                   s);
   if (dtype == 1)
     return repro::launch_dg<__nv_bfloat16>(d, g, q, k, v, out, part, count,
                                            b, hkv, valid_len, n_splits, st,
-                                           scale, s);
+                                           scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

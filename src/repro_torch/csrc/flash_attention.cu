@@ -5,10 +5,13 @@
 // src/repro/kernels/flash_attention.py.  out[b, h, i] = sum_j p_ij v[b, h/G, j]
 // with p_i = softmax_j(q_i . k_j / sqrt(D)) over the keys j the mask keeps:
 // j <= i (causal) and i - j < window (window > 0); G = Hq / Hkv query heads
-// share one KV head.
+// share one KV head.  The keys have a length of their own, Skv (the JAX
+// kernel's kv_len): an encoder-decoder's cross-attention (non-causal)
+// attends Sq target positions to Skv source positions.  With a soft cap c
+// > 0 a logit x = q . k / sqrt(D) becomes c tanh(x / c) before the mask.
 //
-// Layouts: q and out are (B, Hq, S, D), k and v (B, Hkv, S, D), as the JAX
-// kernel takes them, but each is read through its own (batch, head,
+// Layouts: q and out are (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), as the
+// JAX kernel takes them, but each is read through its own (batch, head,
 // position) strides with the head dim contiguous, so the model hands in
 // transposed views of its (B, S, H, D) projections without a copy.
 //
@@ -36,7 +39,7 @@
 //   encoded per call on the host over the strided views (no copy; the
 //   driver's encoder comes through cudaGetDriverEntryPoint, so nothing
 //   links against libcuda), with the (batch, head, position) dims ordered
-//   by stride.  Keys past S come in as TMA's zero fill and are masked.
+//   by stride.  Keys past Skv come in as TMA's zero fill and are masked.
 // - Q is staged once per block with 16-byte loads, written in the same
 //   swizzled layout (a tile's G heads form one TMA box only when G divides
 //   64).
@@ -47,8 +50,10 @@
 //   transpose by hand.
 // - Online softmax in registers with exp2f, scale log2(e) folded into the
 //   scale; the causal, window and ragged masks run only on the tiles that
-//   straddle the diagonal, the window's edge or S.  The -1e30 sentinel, the
-//   max(l, 1e-30) clamp and IEEE division are kept (no fast-math).
+//   straddle the diagonal, the window's edge or Skv.  The soft cap (off at
+//   c = 0, a branch uniform over the launch) is one tanhf per score.  The
+//   -1e30 sentinel, the max(l, 1e-30) clamp and IEEE division are kept (no
+//   fast-math).
 // - The heaviest query tiles (the last under the causal mask) launch
 //   first, so the causal tail overlaps the light tiles.
 // ~198 KB of shared memory at D = 256 (Q 2 x 32 KB, two stages of K + V at
@@ -107,9 +112,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int hkv, int g, int s_len, Strides qs, Strides ks,
-                       Strides vs, Strides os, int causal, int window,
-                       float scale) {
+                       int hkv, int g, int s_len, int kv_len, Strides qs,
+                       Strides ks, Strides vs, Strides os, int causal,
+                       int window, float scale, float cap_pre,
+                       float cap_post) {
   constexpr int kPad = D + 4;             // padded row of Q and K
   constexpr int kDims = D / 16;           // output dims per thread
   constexpr int kPStride = kKeysPerTile + 1;
@@ -148,7 +154,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int p_lo = r0 / g;
   const int p_hi = (min(r0 + kRowsPerTile, n_rows) - 1) / g;
   const int k_begin = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int k_end = causal ? min(s_len, p_hi + 1) : s_len;
+  const int k_end = causal ? min(kv_len, p_hi + 1) : kv_len;
 
   const int rg = tid / 16, cg = tid % 16;  // 4 rows rg*4.., keys/dims by cg
   const int warp = tid / 32, lane = tid % 32;
@@ -164,7 +170,7 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int idx = tid; idx < kKeysPerTile * D; idx += kThreads) {
       const int j = idx / D, d = idx % D, key = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (key < s_len) {
+      if (key < kv_len) {
         kx = kb[key * ks.s + d];
         vx = vb[key * vs.s + d];
       }
@@ -204,10 +210,11 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = k0 + cg + 16 * j;
-        const bool live = key < s_len && (!causal || key <= pos) &&
+        const bool live = key < kv_len && (!causal || key <= pos) &&
                           (window <= 0 || pos - key < window);
-        p_s[(rg * 4 + i) * kPStride + cg + 16 * j] =
-            live ? sc[i][j] * scale : kNegInf;
+        const float x = cap_post > 0.f ? cap_post * tanhf(sc[i][j] * cap_pre)
+                                       : sc[i][j] * scale;
+        p_s[(rg * 4 + i) * kPStride + cg + 16 * j] = live ? x : kNegInf;
       }
     }
     __syncthreads();
@@ -374,9 +381,10 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              TmaOrder ko, TmaOrder vo, int hkv, int bh,
-                             int n_tiles, int g, int s_len, Strides qs,
-                             Strides os, int causal, int window,
-                             float scale_log2) {
+                             int n_tiles, int g, int s_len, int kv_len,
+                             Strides qs, Strides os, int causal, int window,
+                             float scale_log2, float cap_pre,
+                             float cap_post) {
   using W = WgTile<D>;
   constexpr int kStages = W::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -396,7 +404,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int p_lo = r0 / g;
   const int p_hi = (min(r0 + kBlockRows, n_rows) - 1) / g;
   const int k_begin = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int k_end = causal ? min(s_len, p_hi + 1) : s_len;
+  const int k_end = causal ? min(kv_len, p_hi + 1) : kv_len;
   const int t_begin = k_begin / kTileKeys;
   const int t_end = (k_end + kTileKeys - 1) / kTileKeys;
 
@@ -501,21 +509,29 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_wait_all();
       fence_regs(s);
 
-      // Scale into log2 units; mask only where the tile straddles the
-      // diagonal, the window's edge or S.  s[4j + e]: key 8j + 2 tig +
-      // (e & 1), row a for e < 2, row b otherwise.
+      // Scale into log2 units (soft-capped: cap_post tanh(s cap_pre), with
+      // cap_pre = scale / c and cap_post = c log2(e)); mask only where the
+      // tile straddles the diagonal, the window's edge or Skv.  s[4j + e]:
+      // key 8j + 2 tig + (e & 1), row a for e < 2, row b otherwise.
       const int k0 = t * kTileKeys;
       const bool edge = (causal && k0 + kTileKeys - 1 > wpos_lo) ||
                         (window > 0 && k0 <= wpos_hi - window) ||
-                        k0 + kTileKeys > s_len;
+                        k0 + kTileKeys > kv_len;
+      if (cap_post > 0.f) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = cap_post * tanhf(s[i] * cap_pre);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+      }
       float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        float x = s[i] * scale_log2;
+        float x = s[i];
         if (edge) {
           const int key = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
           const int pos = (i & 2) ? pos_b : pos_a;
-          const bool live = key < s_len && (!causal || key <= pos) &&
+          const bool live = key < kv_len && (!causal || key <= pos) &&
                             (window <= 0 || pos - key < window);
           x = live ? x : kNegInf;
         }
@@ -694,14 +710,14 @@ int encode_kv(CUtensorMap* map, TmaOrder* order, const void* base, int b,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int b, int hkv, int g, int s_len, Strides qs, Strides ks,
-                 Strides vs, Strides os, int causal, int window, float scale,
-                 cudaStream_t stream) {
+                 int b, int hkv, int g, int s_len, int kv_len, Strides qs,
+                 Strides ks, Strides vs, Strides os, int causal, int window,
+                 float scale, float softcap, cudaStream_t stream) {
   CUtensorMap k_map, v_map;
   TmaOrder ko, vo;
-  int err = encode_kv<D>(&k_map, &ko, k, b, hkv, s_len, ks);
+  int err = encode_kv<D>(&k_map, &ko, k, b, hkv, kv_len, ks);
   if (err != 0) return err;
-  err = encode_kv<D>(&v_map, &vo, v, b, hkv, s_len, vs);
+  err = encode_kv<D>(&v_map, &vo, v, b, hkv, kv_len, vs);
   if (err != 0) return err;
   const size_t smem = WgTile<D>::kSmem;
   cudaError_t cerr = cudaFuncSetAttribute(
@@ -712,19 +728,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   flash_attention_wgmma_kernel<D><<<n_tiles * b * hkv, kWgmmaThreads, smem,
                                     stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
-      k_map, v_map, ko, vo, hkv, b * hkv, n_tiles, g, s_len, qs, os, causal,
-      window, scale * kLog2e);
+      k_map, v_map, ko, vo, hkv, b * hkv, n_tiles, g, s_len, kv_len, qs, os,
+      causal, window, scale * kLog2e, softcap > 0.f ? scale / softcap : 0.f,
+      softcap * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hkv, int g, int s_len, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int hkv, int g, int s_len, int kv_len, Strides qs, Strides ks,
+           Strides vs, Strides os, int causal, int window, float scale,
+           float softcap, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_wgmma<D>(q, k, v, out, b, hkv, g, s_len, qs, ks, vs, os,
-                           causal, window, scale, stream);
+    return launch_wgmma<D>(q, k, v, out, b, hkv, g, s_len, kv_len, qs, ks, vs,
+                           os, causal, window, scale, softcap, stream);
   } else {
     const dim3 grid((s_len * g + kRowsPerTile - 1) / kRowsPerTile, b * hkv);
     const size_t smem = flash_smem_bytes<D>();
@@ -734,22 +751,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
     if (err != cudaSuccess) return (int)err;
     flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), hkv, g, s_len, qs, ks,
-        vs, os, causal, window, scale);
+        static_cast<const T*>(v), static_cast<T*>(out), hkv, g, s_len, kv_len,
+        qs, ks, vs, os, causal, window, scale,
+        softcap > 0.f ? scale / softcap : 0.f, softcap);
     return (int)cudaGetLastError();
   }
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* out,
-             int b, int hkv, int g, int s_len, Strides qs, Strides ks,
-             Strides vs, Strides os, int causal, int window, float scale,
-             cudaStream_t stream) {
+             int b, int hkv, int g, int s_len, int kv_len, Strides qs,
+             Strides ks, Strides vs, Strides os, int causal, int window,
+             float scale, float softcap, cudaStream_t stream) {
   switch (d) {
 #define REPRO_CASE(DIM)                                                    \
   case DIM:                                                                \
-    return launch<T, DIM>(q, k, v, out, b, hkv, g, s_len, qs, ks, vs, os,  \
-                          causal, window, scale, stream);
+    return launch<T, DIM>(q, k, v, out, b, hkv, g, s_len, kv_len, qs, ks,  \
+                          vs, os, causal, window, scale, softcap, stream);
     REPRO_CASE(32)
     REPRO_CASE(64)
     REPRO_CASE(128)
@@ -763,25 +781,28 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16; scale is 1 / sqrt(D) rounded to
-// float32.  Strides are in elements, (batch, head, position) for each of q,
-// k, v and out; the head dim is contiguous.
+// float32; softcap > 0 caps the scaled logits (0: off).  s_len is Sq,
+// kv_len Skv (equal under the causal mask).  Strides are in elements,
+// (batch, head, position) for each of q, k, v and out; the head dim is
+// contiguous.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype, int b,
-    int hkv, int g, int s_len, int d, long long q_sb, long long q_sh,
-    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, int causal, int window, float scale,
-    void* stream) {
+    int hkv, int g, int s_len, int kv_len, int d, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, int causal, int window, float scale,
+    float softcap, void* stream) {
   using repro::Strides;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro::launch_d<float>(d, q, k, v, out, b, hkv, g, s_len, qs, ks,
-                                  vs, os, causal, window, scale, st);
+    return repro::launch_d<float>(d, q, k, v, out, b, hkv, g, s_len, kv_len,
+                                  qs, ks, vs, os, causal, window, scale,
+                                  softcap, st);
   if (dtype == 1)
     return repro::launch_d<__nv_bfloat16>(d, q, k, v, out, b, hkv, g, s_len,
-                                          qs, ks, vs, os, causal, window,
-                                          scale, st);
+                                          kv_len, qs, ks, vs, os, causal,
+                                          window, scale, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -82,31 +82,74 @@ def gilbert_state_from_arrays(avail, *, device) -> torch.Tensor:
     return torch.as_tensor(np.array(avail, dtype=bool), device=device)
 
 
+def _stacked_layers(sub: dict, n: int, device) -> list[dict]:
+    """A JAX group of ``n`` layers stacked on axis 0 -> a list of ``n``
+    per-layer dicts of float32 tensors."""
+    def layer(tree, i):
+        return {key: layer(x, i) if isinstance(x, dict) else _f32(x[i], device)
+                for key, x in tree.items()}
+
+    return [layer(sub, i) for i in range(n)]
+
+
+def _n_stacked(sub: dict) -> int:
+    return len(np.asarray(sub["ln1"]))
+
+
 def causal_lm_params_from_arrays(tree: dict, cfg: ModelConfig, *,
                                  device) -> dict:
-    """The JAX ``CausalLM.init`` tree of a dense model, as numpy arrays ->
-    this package's parameters, values unchanged (float32).  The JAX tree
-    stacks the layers on a leading axis under ``"blocks"``; the port keeps
-    a list of per-layer dicts.  MoE trees (``"pairs"``, ``"lead"``) raise."""
-    extra = set(tree) - {"embed", "ln_f", "unembed", "blocks"}
+    """The JAX ``CausalLM.init`` tree, as numpy arrays -> this package's
+    parameters, values unchanged (float32).  The JAX tree stacks layers on
+    a leading axis: ``"blocks"`` (dense), ``"pairs"`` (``"dense"`` and
+    ``"moe"`` stacks of the (dense, MoE) pairs, interleaved here) or
+    ``"lead"`` dense layers then MoE ``"blocks"``; the port keeps one list
+    of per-layer dicts.  Routed expert stacks, shared experts, MLA and SSM
+    leaves come across as they are.  Other groups raise."""
+    extra = set(tree) - {"embed", "ln_f", "unembed", "blocks", "pairs",
+                         "lead"}
     if extra:
-        raise NotImplementedError(f"parameter groups {sorted(extra)} are not "
-                                  f"yet ported")
-
-    def leaf(x):
-        return _f32(x, device)
-
-    def layer(sub, i):
-        return {key: layer(x, i) if isinstance(x, dict) else leaf(x[i])
-                for key, x in sub.items()}
-
-    blocks = tree["blocks"]
-    n_layers = len(np.asarray(blocks["ln1"]))
-    if n_layers != cfg.n_layers:
-        raise ValueError(f"tree has {n_layers} layers, config {cfg.n_layers}")
-    params = {key: leaf(tree[key]) for key in ("embed", "ln_f", "unembed")
+        raise ValueError(f"unknown parameter groups {sorted(extra)}")
+    if "pairs" in tree:
+        pairs = tree["pairs"]
+        n = _n_stacked(pairs["dense"])
+        dense = _stacked_layers(pairs["dense"], n, device)
+        moe = _stacked_layers(pairs["moe"], n, device)
+        blocks = [layer for pair in zip(dense, moe) for layer in pair]
+    else:
+        blocks = []
+        if "lead" in tree:
+            blocks += _stacked_layers(tree["lead"], _n_stacked(tree["lead"]),
+                                      device)
+        blocks += _stacked_layers(tree["blocks"], _n_stacked(tree["blocks"]),
+                                  device)
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"tree has {len(blocks)} layers, config "
+                         f"{cfg.n_layers}")
+    params = {key: _f32(tree[key], device) for key in ("embed", "ln_f",
+                                                       "unembed")
               if key in tree}
-    params["blocks"] = [layer(blocks, i) for i in range(n_layers)]
+    params["blocks"] = blocks
+    return params
+
+
+def seq2seq_params_from_arrays(tree: dict, cfg: ModelConfig, *,
+                               device) -> dict:
+    """The JAX ``Seq2SeqLM.init`` tree, as numpy arrays -> this package's
+    parameters, values unchanged (float32): ``"enc_blocks"`` and
+    ``"dec_blocks"`` stacked on axis 0 there, lists here."""
+    keys = {"embed", "ln_enc", "ln_f", "enc_blocks", "dec_blocks"}
+    if set(tree) != keys:
+        raise ValueError(f"parameter groups {sorted(tree)}, expected "
+                         f"{sorted(keys)}")
+    n_enc, n_dec = _n_stacked(tree["enc_blocks"]), _n_stacked(
+        tree["dec_blocks"])
+    if (n_enc, n_dec) != (cfg.n_encoder_layers, cfg.n_layers):
+        raise ValueError(f"tree has {n_enc} + {n_dec} layers, config "
+                         f"{cfg.n_encoder_layers} + {cfg.n_layers}")
+    params = {key: _f32(tree[key], device) for key in ("embed", "ln_enc",
+                                                       "ln_f")}
+    params["enc_blocks"] = _stacked_layers(tree["enc_blocks"], n_enc, device)
+    params["dec_blocks"] = _stacked_layers(tree["dec_blocks"], n_dec, device)
     return params
 
 

@@ -9,7 +9,11 @@ into ``build/repro_torch/`` at the root of the checkout, at first use, and
 is loaded with ``ctypes``.  The file name carries a digest of the sources
 and flags, so an edited kernel is never served from a stale build.  No
 ``--use_fast_math``: the kernels rely on IEEE float32 division and
-denormals (the 1/TINY sentinel and the 1e-30 clamps).
+denormals (the 1/TINY sentinel and the 1e-30 clamps).  ``decode_attention``
+(64 template instances: 2 dtypes x 4 head dims x G = 1..8) also gets
+``-split-compile=0``, nvcc's optimization passes run in parallel on every
+core: on the card's host it builds in ~40 s instead of ~120 s, where the
+other sources take under 20 s.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ KERNELS = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
            "flash_attention", "decode_attention", "mlstm_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS = {"decode_attention": ("-split-compile=0",)}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -42,7 +47,8 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(
+        " ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         if src.suffix == ".cuh" or src.stem == name:
             digest.update(src.name.encode())
@@ -61,8 +67,8 @@ def build(names=KERNELS) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I",
+               str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, tmp, out, proc))

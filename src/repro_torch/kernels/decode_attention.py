@@ -4,7 +4,8 @@
 q is (B, Hq, D), k and v (B, S, Hkv, D), the cache's own layout; the keys
 ``j < valid_len`` take part, softmax in float32, output (B, Hq, D) in q's
 dtype.  ``valid_len`` is a host int: the serving loop knows the cache
-length, so the launch covers exactly the filled keys.  There is no window;
+length, so the launch covers exactly the filled keys.  G = Hq / Hkv is any
+of 1 to 8; ``softcap`` c > 0 caps each scaled logit at c tanh(x / c).  There is no window;
 a sliding-window layer hands in the window's slice of the cache (a view:
 the kernel reads k and v through their strides).  The CUDA kernel is
 ``csrc/decode_attention.cu``: one launch that splits the keys of each
@@ -21,7 +22,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPE_CODES, NEG_INF
+from repro_torch.kernels.flash_attention import (DTYPE_CODES, NEG_INF,
+                                                 softcapped)
 
 MIN_KEYS_PER_SPLIT = 16
 MAX_SPLITS = 256        # the kernel's bound on splits per (batch, KV head)
@@ -32,13 +34,14 @@ _c_void_p, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           valid_len: int) -> torch.Tensor:
+                           valid_len: int, *, softcap: float = 0.0
+                           ) -> torch.Tensor:
     """Plain PyTorch version of the kernel -> (B, Hq, D) in q's dtype."""
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, hkv, hq // hkv, d)
-    scores = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (
-        1.0 / math.sqrt(d))
+    scores = softcapped(torch.einsum("bhgd,bshd->bhgs", qg, k.float())
+                        * (1.0 / math.sqrt(d)), softcap)
     valid = torch.arange(s, device=q.device) < valid_len
     probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v.float())
@@ -84,13 +87,14 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 def _lib():
     fn = _build.library("decode_attention").decode_attention_launch
     fn.argtypes = ([_c_void_p] * 6 + [_c_int] * 7 + [_c_ll] * 10
-                   + [_c_float, _c_void_p])
+                   + [_c_float, _c_float, _c_void_p])
     fn.restype = _c_int
     return fn
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          valid_len: int) -> torch.Tensor:
+                          valid_len: int, *, softcap: float = 0.0
+                          ) -> torch.Tensor:
     """Launch the kernel on the current stream.  Inputs must already be
     validated (``ops.attention_decode`` does it)."""
     b, hq, d = q.shape
@@ -106,6 +110,6 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     part.data_ptr(), counters.data_ptr(), DTYPE_CODES[q.dtype],
                     b, hkv, g, d, valid_len, n_splits, *q.stride()[:2],
                     *k.stride()[:3], *v.stride()[:3], *out.stride()[:2],
-                    1.0 / math.sqrt(d), stream)
+                    1.0 / math.sqrt(d), float(softcap), stream)
     _build.check(status, "decode_attention")
     return out

@@ -29,7 +29,7 @@ KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
                 "flash_attention", "decode_attention", "mlstm_chunk")
 MAX_K = 1024  # clients per service the kernels hold in registers (32 x 32)
 HEAD_DIMS = (32, 64, 128, 256)     # head dims the attention kernels compile
-DECODE_GROUPS = (1, 2, 4, 8)       # query heads per KV head of decode
+DECODE_GROUPS = tuple(range(1, 9))  # query heads per KV head of decode
 ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 MLSTM_HEAD_DIM_STEP = 64    # mLSTM head dims: multiples of the kernel's
 MLSTM_MAX_HEAD_DIM = 1024   # head-dim tile, up to what its C slice fits
@@ -201,39 +201,50 @@ def _check_tma_strides(name: str, tensors: dict) -> None:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Causal / sliding-window GQA over a whole sequence (prefill).
-    q (B, Hq, S, D), k and v (B, Hkv, S, D), any (batch, head, position)
-    strides -> (B, Hq, S, D) in q's dtype and layout."""
+              causal: bool = True, window: int = 0,
+              softcap: float = 0.0) -> torch.Tensor:
+    """Causal / sliding-window GQA over a whole sequence (prefill), or
+    without the causal mask over keys of their own length (an encoder,
+    cross-attention).  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) with
+    Skv = Sq under the causal mask, any (batch, head, position) strides ->
+    (B, Hq, Sq, D) in q's dtype and layout.  ``softcap`` > 0 soft-caps the
+    scaled logits."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"attention: need q (B, Hq, S, D) and k, v "
-                         f"(B, Hkv, S, D), got {tuple(q.shape)}, "
+        raise ValueError(f"attention: need q (B, Hq, Sq, D) and k, v "
+                         f"(B, Hkv, Skv, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, hq, s, d = q.shape
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or s < 1:
+    skv = k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, d) or s < 1 or skv < 1 or (
+            causal and skv != s):
         raise ValueError(f"attention: k and v {tuple(k.shape)} do not match "
-                         f"q {tuple(q.shape)}")
+                         f"q {tuple(q.shape)}"
+                         f"{' (causal: Skv must equal Sq)' if causal else ''}")
     if k.shape[1] < 1 or hq % k.shape[1]:
         raise ValueError(f"attention: Hq {hq} is not a multiple of Hkv "
                          f"{k.shape[1]}")
-    if window < 0:
-        raise ValueError(f"attention: window must be >= 0, got {window}")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"attention: window and softcap must be >= 0, got "
+                         f"{window} and {softcap}")
+    kw = dict(causal=causal, window=window, softcap=float(softcap))
     if _check_heads("attention", {"q": q, "k": k, "v": v}, d):
         if q.dtype == torch.bfloat16:
             _check_rows_aligned("attention", {"q": q, "k": k, "v": v})
             _check_tma_strides("attention", {"k": k, "v": v})
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        out = flash_attention_cuda(q, k, v, **kw)
         LAUNCHES["flash_attention"] += 1
         return out
-    return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return flash_attention_plain(q, k, v, **kw)
 
 
 def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: int) -> torch.Tensor:
+                     valid_len: int, *, softcap: float = 0.0
+                     ) -> torch.Tensor:
     """One query token per sequence against a KV cache: q (B, Hq, D), k and
     v (B, S, Hkv, D) with any (batch, position, head) strides; the first
     ``valid_len`` keys (a host int, 1 <= valid_len <= S) take part ->
-    (B, Hq, D) in q's dtype."""
+    (B, Hq, D) in q's dtype.  ``softcap`` > 0 soft-caps the scaled
+    logits."""
     if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"attention_decode: need q (B, Hq, D) and k, v "
                          f"(B, S, Hkv, D), got {tuple(q.shape)}, "
@@ -249,12 +260,17 @@ def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if isinstance(valid_len, torch.Tensor) or not 1 <= valid_len <= s:
         raise ValueError(f"attention_decode: valid_len must be a host int in "
                          f"[1, {s}], got {valid_len!r}")
+    if softcap < 0:
+        raise ValueError(f"attention_decode: softcap must be >= 0, got "
+                         f"{softcap}")
     if _check_heads("attention_decode", {"q": q, "k": k, "v": v}, d):
         _check_rows_aligned("attention_decode", {"q": q, "k": k, "v": v})
-        out = decode_attention_cuda(q, k, v, int(valid_len))
+        out = decode_attention_cuda(q, k, v, int(valid_len),
+                                    softcap=float(softcap))
         LAUNCHES["decode_attention"] += 1
         return out
-    return decode_attention_plain(q, k, v, int(valid_len))
+    return decode_attention_plain(q, k, v, int(valid_len),
+                                  softcap=float(softcap))
 
 
 def _check_mlstm(tensors: dict) -> bool:

@@ -3,22 +3,30 @@
 
 Serves a (reduced by default; ``--no-reduced`` selects the full public
 config) architecture on the card, or on the CPU with ``--device cpu``:
-gemma3-1b (a KV cache) or xlstm-1.3b (a recurrent state cache), through the
-same ``generate``.
+any of the zoo's names through the same ``generate`` -- a KV cache (dense,
+MoE, int8), MLA's latent cache, the hybrid's KV and SSM states, the
+xLSTM's recurrent states, or the enc-dec's self and cross caches (its
+source is the stub frontend's frames: standard normals x 0.1, drawn on a
+CPU generator seeded 2, as the JAX serve draws them from a fixed key).
+M-RoPE configs (qwen2-vl-7b) need (3, B, S) positions, which this driver
+does not build, so they raise here as in the JAX serve; drive them through
+``generate`` with the positions in the batch and ``decode_kw``.
 Prefill time is read after the device has finished the logits, and every
 generated token -- including the first, sampled from the prefill logits --
 goes through the same ``--temperature`` path, so the loop emits exactly
 ``--gen`` sampled tokens with ``gen - 1`` decode launches.
 
-Parameters are drawn in float32 and cast once to the compute dtype before
-serving (the model's ``cast_params``; the float32 tree is then dropped):
-the same values the JAX model casts at every use, without re-reading the
-float32 weights at every decode step.
+Parameters are drawn in the compute dtype (``init(dtype=...)``: each
+matrix cast as soon as it is drawn, bit for bit ``cast_params`` of the
+float32 tree, which is never held whole): the same values the JAX model
+casts at every use, without re-reading float32 weights at every decode
+step.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --batch 4 --prompt-len 64 --gen 32 [--no-reduced] [--device cpu]
-  (--arch xlstm-1.3b serves the xLSTM)
+  (--arch takes any name of repro_torch.configs.ARCH_NAMES but
+  qwen2-vl-7b, whose M-RoPE positions this driver does not build)
 """
 from __future__ import annotations
 
@@ -79,8 +87,13 @@ def _sync(x: torch.Tensor) -> None:
 
 
 def generate(model, params, batch: dict, *, max_len: int, gen: int,
-             temperature: float, generator: torch.Generator):
+             temperature: float, generator: torch.Generator,
+             decode_kw=None):
     """Prefill then decode ``gen`` tokens.  Returns (tokens (B, gen), info).
+
+    ``decode_kw(pos)``, where given, returns the keyword arguments of the
+    decode step that feeds the token at position ``pos`` (tensors, moved to
+    the logits' device): M-RoPE's (3, B, 1) positions.
 
     ``info`` carries wall-clock timings measured on finished device work:
     ``t_prefill`` waits for the prefill logits before reading the clock,
@@ -99,9 +112,13 @@ def generate(model, params, batch: dict, *, max_len: int, gen: int,
     prefill_logits = logits
     tok = sample_token(generator, logits, temperature)
     generated = [tok]
+    prompt_len = batch["tokens"].shape[1]
     t0 = time.perf_counter()
-    for _ in range(gen - 1):
-        logits, cache = model.decode_step(params, cache, tok)
+    for step in range(gen - 1):
+        kw = decode_kw(prompt_len + step) if decode_kw else {}
+        logits, cache = model.decode_step(
+            params, cache, tok,
+            **{k: x.to(logits.device) for k, x in kw.items()})
         tok = sample_token(generator, logits, temperature)
         generated.append(tok)
     _sync(tok)
@@ -115,11 +132,13 @@ def generate(model, params, batch: dict, *, max_len: int, gen: int,
 
 def main(argv: list[str] | None = None) -> dict:
     """Serve one batch of random prompts; prints a summary and returns
-    ``{"tokens", "info", "config", "model", "params", "prompts"}``."""
+    ``{"tokens", "info", "config", "model", "params", "prompts",
+    "batch"}``."""
     args = build_parser().parse_args(argv)
     cfg = resolve_config(args.arch, args.reduced)
     model = registry.build_model(cfg)
-    params = model.cast_params(model.init(args.seed, device=args.device))
+    params = model.init(args.seed, device=args.device,
+                        dtype=cfg.compute_dtype)
     max_len = args.prompt_len + args.gen
 
     # A CPU generator: the prompts and the sampling noise are the same for
@@ -127,7 +146,12 @@ def main(argv: list[str] | None = None) -> dict:
     generator = torch.Generator().manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=generator).to(args.device)
-    out, info = generate(model, params, {"tokens": prompts}, max_len=max_len,
+    batch = {"tokens": prompts}
+    if cfg.family == "encdec":
+        frames = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                             generator=torch.Generator().manual_seed(2))
+        batch["frontend_embeds"] = (frames * 0.1).to(args.device)
+    out, info = generate(model, params, batch, max_len=max_len,
                          gen=args.gen, temperature=args.temperature,
                          generator=generator)
     steps = max(info["decode_steps"], 1)
@@ -139,7 +163,7 @@ def main(argv: list[str] | None = None) -> dict:
           f"{out[0][:16].tolist()} ...")
     print(f"[cache]  len={int(info['cache']['len'])}")
     return {"tokens": out, "info": info, "config": cfg, "model": model,
-            "params": params, "prompts": prompts}
+            "params": params, "prompts": prompts, "batch": batch}
 
 
 if __name__ == "__main__":

@@ -3,8 +3,7 @@
 
 One dataclass parameterizes the dense / MoE / MLA / SSM / hybrid / enc-dec
 families, field for field as in the JAX package, so a configuration reads
-the same in both.  The dense and SSM (xLSTM) families are ported
-(``check_ported`` raises for the others and for unported features).
+the same in both.
 """
 from __future__ import annotations
 
@@ -113,51 +112,37 @@ class ModelConfig:
         from repro_torch.models import registry  # lazy: avoid cycle
 
         params = registry.build_model(self).init(0, device="meta")
-        return sum(math.prod(x.shape) for x in _leaves(params))
+        return sum(math.prod(x.shape) for _, x in _leaves(params))
 
     def active_param_count(self) -> int:
-        """Parameters touched per token.  Without routed experts (every
-        family this port runs) that is every parameter."""
-        if self.n_experts:
-            raise NotImplementedError(
-                f"{self.name}: active parameters of MoE layers (not ported)")
-        return self.param_count()
+        """Parameters touched per token: routed experts count k/E.  As in
+        the JAX package, each routed matrix (summed over the layers, which
+        JAX stacks into one leaf) is scaled by k/E and truncated once."""
+        from repro_torch.models import registry
+
+        params = registry.build_model(self).init(0, device="meta")
+        k_frac = self.n_experts_per_token / max(self.n_experts, 1)
+        total, routed = 0, {}
+        for path, x in _leaves(params):
+            n = math.prod(x.shape)
+            if "routed" in path:
+                routed[path[-1]] = routed.get(path[-1], 0) + n
+            else:
+                total += n
+        return total + sum(int(n * k_frac) for n in routed.values())
 
 
-PORTED_FAMILIES = ("dense", "ssm")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the config this port does not run yet."""
-    missing = []
-    if cfg.family not in PORTED_FAMILIES:
-        missing.append(f"family {cfg.family!r}")
-    if cfg.n_experts:
-        missing.append("MoE layers")
-    if cfg.kv_cache_dtype != "compute":
-        missing.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
-    if cfg.mrope_sections:
-        missing.append("M-RoPE")
-    if cfg.logit_softcap > 0:
-        missing.append("logit_softcap")
-    if cfg.parallel_block:
-        missing.append("parallel_block")
-    if cfg.frontend != "none":
-        missing.append(f"frontend {cfg.frontend!r}")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not yet "
-                                  f"ported")
-
-
-def _leaves(tree):
+def _leaves(tree, path=()):
+    """(path of keys, tensor) of every leaf; list positions are not part
+    of the path."""
     if isinstance(tree, dict):
-        for value in tree.values():
-            yield from _leaves(value)
+        for key, value in tree.items():
+            yield from _leaves(value, (*path, key))
     elif isinstance(tree, (list, tuple)):
         for value in tree:
-            yield from _leaves(value)
+            yield from _leaves(value, path)
     else:
-        yield tree
+        yield path, tree
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

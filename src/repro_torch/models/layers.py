@@ -3,7 +3,10 @@
 Parameters are nested dicts of tensors, made by ``init_*`` functions from a
 ``torch.Generator`` and consumed by the matching ``apply`` functions.  All
 layers take an explicit compute ``dtype``: params are stored in float32 and
-cast at use (``.to(dtype)`` is a no-op on a tensor already in it).
+cast at use (``.to(dtype)`` is a no-op on a tensor already in it).  An
+``init_*`` given ``dtype`` casts each matrix it draws to it at once (the
+float32 draw of one tensor is the only transient), which equals drawing
+in float32 and casting the tree after.
 
 Conventions (the JAX package's):
   * activations: (batch, seq, d_model)
@@ -29,29 +32,46 @@ Params = dict[str, Any]
 # Initializers.
 # ---------------------------------------------------------------------------
 
+F32 = torch.float32
+
+
 def _normal(gen: torch.Generator, shape: tuple[int, ...], device,
-            op: Callable[[torch.Tensor], torch.Tensor] = lambda x: x
-            ) -> torch.Tensor:
+            op: Callable[[torch.Tensor], torch.Tensor] = lambda x: x,
+            dtype: torch.dtype = F32) -> torch.Tensor:
     """float32 standard normals of ``shape`` drawn on ``gen``'s device (the
-    CPU: ``transformer._generator``), ``op`` applied there, then moved to
-    ``device``, one tensor at a time: the same values on every device.
+    CPU: ``transformer._generator``), ``op`` applied there (it may work in
+    place on the fresh draw), then moved to ``device`` and cast to
+    ``dtype``, one tensor at a time: the same values on every device.
     ``device="meta"`` draws nothing."""
     if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device="meta")
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return op(x).to(device)
+    return op(x).to(device).to(dtype)
+
+
+def _uniform(gen: torch.Generator, shape: tuple[int, ...], device,
+             op: Callable[[torch.Tensor], torch.Tensor] = lambda x: x,
+             dtype: torch.dtype = F32) -> torch.Tensor:
+    """As ``_normal``, from float32 uniforms on [0, 1)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    x = torch.rand(shape, generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    return op(x).to(device).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               scale: float | None = None, *, device) -> torch.Tensor:
+               scale: float | None = None, *, device,
+               dtype: torch.dtype = F32) -> torch.Tensor:
     s = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    return _normal(gen, (d_in, d_out), device, lambda x: x * s)
+    return _normal(gen, (d_in, d_out), device, lambda x: x.mul_(s), dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, *,
-               device) -> torch.Tensor:
-    return _normal(gen, (vocab, d_model), device, lambda x: x * 0.02)
+               device, dtype: torch.dtype = F32) -> torch.Tensor:
+    return _normal(gen, (vocab, d_model), device, lambda x: x.mul_(0.02),
+                   dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -67,20 +87,42 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """float32 math (``scale`` and ``bias`` as given, not 1 + scale), cast
+    back to x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings.
 # ---------------------------------------------------------------------------
 
+def _rope_freq(half: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-i / half) for i < half, float32."""
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exponent)
+
+
 def _rope_angles(positions: torch.Tensor, dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """positions (...,) -> (cos, sin) of shape (..., dim//2), float32."""
-    half = dim // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32,
-                             device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=positions.device), exponent)
+    freq = _rope_freq(dim // 2, theta, positions.device)
     ang = positions.float()[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -89,10 +131,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     halves (not interleaved pairs)."""
     d = x.shape[-1]
     cos, sin = _rope_angles(positions, d, theta)      # (B, S, D/2)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def apply_partial_rope(x: torch.Tensor, positions: torch.Tensor,
+                       rope_dim: int, theta: float = 10_000.0
+                       ) -> torch.Tensor:
+    """Rotate only the first ``rope_dim`` features of the head (DeepSeek
+    MLA)."""
+    rot, keep = x[..., :rope_dim], x[..., rope_dim:]
+    return torch.cat([apply_rope(rot, positions, theta), keep], dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): ``positions`` is (3, B, S), the
+    (temporal, height, width) index of each position; the head dim's
+    frequency bands are split into ``sections`` (half-dim units, summing to
+    D/2), each band rotated by its own position stream.  Other positions
+    raise, as the JAX function does (it indexes axis 2 of a (B, S) array)."""
+    b, s, _, d = x.shape
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    if positions.ndim != 3 or positions.shape[0] != len(sections):
+        raise ValueError(f"M-RoPE needs ({len(sections)}, B, S) positions, "
+                         f"got {tuple(positions.shape)}")
+    freq = _rope_freq(half, theta, x.device)
+    stream_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))            # (half,)
+    pos_sel = positions.float()[stream_id]                  # (half, B, S)
+    ang = pos_sel.permute(1, 2, 0) * freq                   # (B, S, half)
+    return _rotate(x, torch.cos(ang)[:, :, None, :],
+                   torch.sin(ang)[:, :, None, :])
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +194,8 @@ def make_attention_mask(q_len: int, kv_len: int, q_offset: int = 0,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None, *,
-              scale: float | None = None) -> torch.Tensor:
+              scale: float | None = None,
+              logit_softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention.  q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) ->
     (B,Sq,Hq,D).  Softmax in float32; the probabilities are cast to v's
     dtype before the second product, as in the JAX package."""
@@ -133,6 +207,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(b, sq, hkv, g, d)
     s = (1.0 / math.sqrt(d)) if scale is None else scale
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * s
+    if logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
     if mask is not None:
         logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -144,6 +220,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       q_offset: int = 0, kv_valid_len: int | None = None,
                       scale: float | None = None,
+                      logit_softcap: float = 0.0,
                       chunk_size: int = 1024) -> torch.Tensor:
     """Query-chunked attention: O(chunk * S_kv) score memory.  Unlike the
     JAX version, a query length that is not a multiple of ``chunk_size``
@@ -154,24 +231,29 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         hi = min(sq, lo + chunk_size)
         mask = make_attention_mask(hi - lo, k.shape[1], q_offset + lo, causal,
                                    window, kv_valid_len, device=q.device)
-        outs.append(attention(q[:, lo:hi], k, v, mask, scale=scale))
+        outs.append(attention(q[:, lo:hi], k, v, mask, scale=scale,
+                              logit_softcap=logit_softcap))
     return torch.cat(outs, dim=1)
 
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: int, *, qkv_bias: bool = False,
-                   qk_norm: bool = False, device) -> Params:
+                   qk_norm: bool = False, device,
+                   dtype: torch.dtype = F32) -> Params:
+    """``dtype`` is that of the matrices and biases; norm scales stay
+    float32."""
+    kw = dict(device=device, dtype=dtype)
     p = {
-        "wq": dense_init(gen, d_model, n_heads * head_dim, device=device),
-        "wk": dense_init(gen, d_model, n_kv_heads * head_dim, device=device),
-        "wv": dense_init(gen, d_model, n_kv_heads * head_dim, device=device),
-        "wo": dense_init(gen, n_heads * head_dim, d_model, device=device),
+        "wq": dense_init(gen, d_model, n_heads * head_dim, **kw),
+        "wk": dense_init(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wv": dense_init(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wo": dense_init(gen, n_heads * head_dim, d_model, **kw),
     }
     zeros = dict(dtype=torch.float32, device=device)
     if qkv_bias:
-        p["bq"] = torch.zeros((n_heads * head_dim,), **zeros)
-        p["bk"] = torch.zeros((n_kv_heads * head_dim,), **zeros)
-        p["bv"] = torch.zeros((n_kv_heads * head_dim,), **zeros)
+        p["bq"] = torch.zeros((n_heads * head_dim,), **kw)
+        p["bk"] = torch.zeros((n_kv_heads * head_dim,), **kw)
+        p["bv"] = torch.zeros((n_kv_heads * head_dim,), **kw)
     if qk_norm:
         p["q_norm"] = torch.zeros((head_dim,), **zeros)
         p["k_norm"] = torch.zeros((head_dim,), **zeros)
@@ -203,16 +285,18 @@ def project_qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv_heads: int,
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
-             kind: str = "swiglu", *, device) -> Params:
+             kind: str = "swiglu", *, device,
+             dtype: torch.dtype = F32) -> Params:
+    kw = dict(device=device, dtype=dtype)
     if kind in ("swiglu", "geglu"):
         return {
-            "w_gate": dense_init(gen, d_model, d_ff, device=device),
-            "w_up": dense_init(gen, d_model, d_ff, device=device),
-            "w_down": dense_init(gen, d_ff, d_model, device=device),
+            "w_gate": dense_init(gen, d_model, d_ff, **kw),
+            "w_up": dense_init(gen, d_model, d_ff, **kw),
+            "w_down": dense_init(gen, d_ff, d_model, **kw),
         }
     return {  # plain gelu MLP
-        "w_up": dense_init(gen, d_model, d_ff, device=device),
-        "w_down": dense_init(gen, d_ff, d_model, device=device),
+        "w_up": dense_init(gen, d_model, d_ff, **kw),
+        "w_down": dense_init(gen, d_ff, d_model, **kw),
     }
 
 
@@ -230,3 +314,22 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str,
         return (F.gelu(x @ p["w_up"].to(dtype), approximate="tanh")
                 @ p["w_down"].to(dtype))
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Losses.
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token loss in float32.  logits (B, S, V) any float dtype;
+    labels (B, S) int; ``mask`` (B, S) weights the positions (the JAX
+    package's ``loss_mask``: sum over the mask, at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    m = mask.float()
+    return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)

@@ -1,16 +1,23 @@
-"""Recurrent sequence-mixing layers of the xLSTM family, the counterpart of
-``repro.models.ssm``: the depthwise causal conv, the mLSTM cell (matrix
-memory) and the sLSTM cell (scalar memory with exponential gating), each
-with a whole-sequence form and an O(1)-state decode step.
+"""Recurrent sequence-mixing layers, the counterpart of ``repro.models.ssm``:
+the depthwise causal conv, the selective SSM (Mamba-style, the Hymba
+hybrid's SSM heads), the mLSTM cell (matrix memory) and the sLSTM cell
+(scalar memory with exponential gating), each with a whole-sequence form
+and an O(1)-state decode step.
 
+  * selective SSM -- the diagonal recurrence h_t = a_t h_{t-1} + b_t over
+    a sequence as a log-depth (Hillis-Steele) scan of the JAX package's
+    ``combine``, ceil(log2 S) steps of whole-tensor ops; it rounds in
+    another order than ``jax.lax.associative_scan`` (float32 products of
+    decays <= 1: a few ulps apart).  The JAX package has no Pallas kernel
+    for it, so neither has the port.
   * mLSTM over a sequence -- ``apply_mlstm`` hands q, k, v and the gates
     to ``kernels.ops.mlstm`` (the chunkwise kernel on a CUDA tensor,
     ``mlstm_chunkwise`` on a CPU one); one token goes through
     ``mlstm_step``.  ``mlstm_parallel`` is the quadratic oracle.
   * sLSTM -- sequential by construction: a Python loop of ``slstm_step``.
 
-Decode steps carry (conv_state, C, n, m) and (c, n, h, m).  The selective
-SSM of the hybrid (Hymba) family is not ported yet.
+Decode steps carry (conv_state, ssm_state), (conv_state, C, n, m) and
+(c, n, h, m).
 """
 from __future__ import annotations
 
@@ -49,6 +56,83 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     xp = torch.cat([state, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype) for i in range(k))
     return y, xp[:, -(k - 1):, :]
+
+
+# ---------------------------------------------------------------------------
+# Selective SSM (Mamba-style) head block.
+# ---------------------------------------------------------------------------
+
+def init_ssm(gen: torch.Generator, cfg: ModelConfig, d_inner: int, *,
+             device, dtype: torch.dtype = layers.F32) -> Params:
+    """``dtype`` is that of the tensors the layer casts at use (projections,
+    conv taps, dt bias, skip); ``a_log`` stays float32."""
+    d, n = cfg.d_model, cfg.ssm_state
+    kw = dict(device=device, dtype=dtype)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    return {
+        "w_in": layers.dense_init(gen, d, d_inner, **kw),
+        "conv_w": layers._normal(gen, (cfg.ssm_conv, d_inner), device,
+                                 lambda x: x * 0.2, dtype),
+        "w_bc": layers.dense_init(gen, d_inner, 2 * n, **kw),
+        "w_dt": layers.dense_init(gen, d_inner, d_inner, scale=0.01, **kw),
+        "dt_bias": layers._uniform(
+            gen, (d_inner,), device,
+            lambda u: torch.log(torch.expm1(torch.exp(lo + (hi - lo) * u))),
+            dtype),
+        "a_log": (torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                         device=device))[None, :]
+                  * torch.ones((d_inner, 1), dtype=torch.float32,
+                               device=device)),
+        "d_skip": torch.ones((d_inner,), **kw),
+        "w_out": layers.dense_init(gen, d_inner, d_inner, **kw),
+    }
+
+
+def _ssm_scan(a: torch.Tensor, bx: torch.Tensor,
+              h0: torch.Tensor | None = None) -> torch.Tensor:
+    """Diagonal linear recurrence h_t = a_t h_{t-1} + bx_t along axis 1.
+    a, bx: (B, S, D, N) float32; ``h0`` (B, D, N) the state before the
+    first step.  Hillis-Steele: after the step of stride 2^i, position t
+    holds the combine of positions (t - 2^(i+1), t], so ceil(log2 S) steps
+    of ``combine(left, right) = (a_l a_r, a_r b_l + b_r)``."""
+    if h0 is not None:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], dim=1)
+    s = a.shape[1]
+    step = 1
+    while step < s:
+        b_new = a[:, step:] * bx[:, :-step] + bx[:, step:]
+        a_new = a[:, :-step] * a[:, step:]
+        bx = torch.cat([bx[:, :step], b_new], dim=1)
+        a = torch.cat([a[:, :step], a_new], dim=1)
+        step *= 2
+    return bx
+
+
+def apply_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              conv_state: torch.Tensor | None = None,
+              ssm_state: torch.Tensor | None = None):
+    """x (B, S, d_model) -> (y (B, S, d_inner), conv_state, ssm_state).
+
+    A whole sequence starts from zero states when they are None; a decode
+    step passes both (S may be 1).  The new ssm state is float32."""
+    dtype = x.dtype
+    n = cfg.ssm_state
+    xz = x @ p["w_in"].to(dtype)                                # (B,S,Di)
+    xc, conv_state_new = causal_depthwise_conv(xz, p["conv_w"], conv_state)
+    xc = F.silu(xc)
+    bc = xc @ p["w_bc"].to(dtype)                               # (B,S,2N)
+    b_in, c_out = bc[..., :n], bc[..., n:]
+    dt = F.softplus(xc @ p["w_dt"].to(dtype) + p["dt_bias"].to(dtype))
+    a = -torch.exp(p["a_log"].float())                          # (Di,N) < 0
+    # discretize: a_bar = exp(dt A); b_bar x = dt B x
+    a_bar = torch.exp(dt.float()[..., None] * a)                # (B,S,Di,N)
+    bx = (dt * xc).float()[..., None] * b_in.float()[..., None, :]
+    h = _ssm_scan(a_bar, bx, ssm_state)                         # (B,S,Di,N)
+    y = torch.einsum("bsdn,bsn->bsd", h.to(dtype), c_out)
+    y = y + xc * p["d_skip"].to(dtype)
+    y = y * F.silu(xz)                                          # gated
+    y = y @ p["w_out"].to(dtype)
+    return y, conv_state_new, h[:, -1].float()
 
 
 # ---------------------------------------------------------------------------

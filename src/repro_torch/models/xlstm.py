@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers, ssm
-from repro_torch.models.config import ModelConfig, check_ported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _generator
 
 Params = dict[str, Any]
@@ -112,7 +112,6 @@ class XLSTMLM:
     cfg: ModelConfig
 
     def __post_init__(self):
-        check_ported(self.cfg)
         if self.cfg.family != "ssm":
             raise ValueError(f"{self.cfg.name}: XLSTMLM runs the ssm family, "
                              f"not {self.cfg.family!r}")
@@ -129,28 +128,33 @@ class XLSTMLM:
         return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
 
     # ---------------- init ----------------
-    def init(self, seed: int | torch.Generator, *, device="cuda") -> Params:
+    def init(self, seed: int | torch.Generator, *, device="cuda",
+             dtype: torch.dtype | None = None) -> Params:
         """float32 parameters on ``device``, drawn on the CPU from a
         generator seeded with ``seed`` (or ``seed`` itself), so one seed
         gives the same weights on every device; ``device="meta"`` gives
-        shapes only."""
+        shapes only.  With ``dtype`` (the compute dtype) each block is cast
+        as ``cast_params`` casts it as soon as it is drawn: the same tree
+        as ``cast_params(init(...))``, bit for bit."""
         cfg = self.cfg
         n_super, n_m = self._layout
         gen = _generator(seed)
+        cast = (lambda tree: tree) if dtype is None else (
+            lambda tree: self._cast(tree, dtype))
         p: Params = {
-            "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                       device=device),
+            "embed": cast(layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                            device=device)),
             "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                 device=device),
         }
-        p["m_blocks"] = [[init_mlstm_block(gen, cfg, device=device)
+        p["m_blocks"] = [[cast(init_mlstm_block(gen, cfg, device=device))
                           for _ in range(n_m)] for _ in range(n_super)]
         if cfg.slstm_every > 0:
-            p["s_blocks"] = [init_slstm_block(gen, cfg, device=device)
+            p["s_blocks"] = [cast(init_slstm_block(gen, cfg, device=device))
                              for _ in range(n_super)]
         if not cfg.tie_embeddings:
-            p["unembed"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                             device=device)
+            p["unembed"] = cast(layers.dense_init(
+                gen, cfg.d_model, cfg.vocab_size, device=device))
         return p
 
     def cast_params(self, params: Params) -> Params:
@@ -158,16 +162,15 @@ class XLSTMLM:
         dtype: the JAX model casts each of them to it at use (weights, gate
         biases, conv taps, recurrent matrices), so the values are the same,
         cast once.  Norm scales stay float32, as ``rms_norm`` reads them."""
-        dt = self.cfg.compute_dtype
+        return self._cast(params, self.cfg.compute_dtype)
 
-        def cast(tree, key=None):
-            if isinstance(tree, list):
-                return [cast(x) for x in tree]
-            if isinstance(tree, dict):
-                return {k: cast(x, k) for k, x in tree.items()}
-            return tree if key in _NORMS else tree.to(dt)
-
-        return cast(params)
+    @staticmethod
+    def _cast(tree, dt: torch.dtype, key=None):
+        if isinstance(tree, list):
+            return [XLSTMLM._cast(x, dt) for x in tree]
+        if isinstance(tree, dict):
+            return {k: XLSTMLM._cast(x, dt, k) for k, x in tree.items()}
+        return tree if key in _NORMS else tree.to(dt)
 
     # ---------------- caches ----------------
     def init_cache(self, batch_size: int, max_len: int, *,

@@ -22,7 +22,7 @@ from repro.models import layers as j_layers
 from repro.models import registry as j_registry
 from repro_torch import configs, interop
 from repro_torch.kernels import ops
-from repro_torch.models import config, layers, registry, transformer
+from repro_torch.models import config, layers, registry
 
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -87,28 +87,6 @@ def test_reduced_overrides_and_moe_layers_match_jax():
                                 moe_every=2, n_dense_leading=1)
     assert [moe.is_moe_layer(i) for i in range(8)] == \
         [j_moe.is_moe_layer(i) for i in range(8)]
-
-
-def test_other_archs_are_not_yet_ported():
-    assert configs.ARCH_NAMES == j_configs.ARCH_NAMES
-    for name in configs.ARCH_NAMES:
-        if name in (ARCH, "xlstm-1.3b"):     # ported
-            continue
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            configs.get_config(name)
-    with pytest.raises(KeyError):
-        configs.get_config("no-such-arch")
-
-
-@pytest.mark.parametrize("change", [
-    dict(family="moe", n_experts=4), dict(family="hybrid"),
-    dict(kv_cache_dtype="int8"), dict(mrope_sections=(8, 4, 4)),
-    dict(logit_softcap=30.0), dict(parallel_block=True),
-])
-def test_unported_model_features_raise(change):
-    cfg = dataclasses.replace(configs.get_smoke_config(ARCH), **change)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.build_model(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +197,8 @@ def test_interop_rejects_trees_it_cannot_carry(reduced_pair):
         interop.causal_lm_params_from_arrays(
             tree, dataclasses.replace(configs.get_smoke_config(ARCH),
                                       n_layers=3), device="cpu")
-    with pytest.raises(NotImplementedError):
-        interop.causal_lm_params_from_arrays({**tree, "pairs": {}},
+    with pytest.raises(ValueError, match="groups"):
+        interop.causal_lm_params_from_arrays({**tree, "experts": {}},
                                              configs.get_smoke_config(ARCH),
                                              device="cpu")
 
@@ -274,13 +252,13 @@ def test_attention_kernels_get_static_windows_and_the_cache_slice(
     calls = []
     flash, decode = ops.attention, ops.attention_decode
 
-    def spy_flash(q, k, v, *, causal, window):
+    def spy_flash(q, k, v, *, causal, window, softcap):
         calls.append(("flash", window, q.shape[2]))
-        return flash(q, k, v, causal=causal, window=window)
+        return flash(q, k, v, causal=causal, window=window, softcap=softcap)
 
-    def spy_decode(q, k, v, valid_len):
+    def spy_decode(q, k, v, valid_len, *, softcap):
         calls.append(("decode", k.shape[1], valid_len))
-        return decode(q, k, v, valid_len)
+        return decode(q, k, v, valid_len, softcap=softcap)
 
     monkeypatch.setattr(ops, "attention", spy_flash)
     monkeypatch.setattr(ops, "attention_decode", spy_decode)
@@ -346,8 +324,3 @@ def test_cache_overflow_and_multi_token_append_raise(reduced_pair):
     with pytest.raises(NotImplementedError):
         model.forward(params, toks[:, :2], cache=cache)
 
-
-def test_causal_lm_rejects_what_the_registry_rejects():
-    cfg = dataclasses.replace(configs.get_smoke_config(ARCH), n_experts=2)
-    with pytest.raises(NotImplementedError):
-        transformer.CausalLM(cfg)

@@ -80,11 +80,8 @@ def test_serve_makes_a_cpu_generator_for_the_card(generators_made,
     """serve.main's prompt and sampling generator, past a model whose
     init draws nothing."""
     class Model:
-        def init(self, seed, *, device):
+        def init(self, seed, *, device, dtype=None):
             return {}
-
-        def cast_params(self, params):
-            return params
 
     monkeypatch.setattr(registry, "build_model", lambda cfg: Model())
     _no_card_error(lambda: serve.main(["--device", "cuda", "--gen", "1"]))
