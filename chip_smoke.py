@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's allocation and serve paths on one CUDA card.
+"""Drive the PyTorch port's allocation, serve and train paths on one CUDA
+card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -158,6 +159,38 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    planted faults on the card -- B6 reading one key fewer in every layer
    and in the last one only, k and v with relative noise of 1e-3 -- each
    of which must fail it) and with the soft cap 50;
+6b. B5's backward (slice 13: the kernel pair of csrc/flash_attention_bwd.cu,
+   dq then dk and dv) against flash_attention_bwd_plain on the card, on the
+   forward kernel's own output and a random dO: the train shape (B = 2
+   clients folded, Hq = 4, Hkv = 1, S = 2048, D = 256, window 1024 and
+   global) and phase 4's B5 cases (FLASH_CASES and ZOO_FLASH_CASES), in
+   bfloat16, and in float32 where BWD_FLOAT32 names the case; the
+   largest |dq|, |dk|, |dv| deviation within BWD_TOL of the largest |grad|
+   (2e-2 bfloat16, 1e-4 float32), the same bits over BWD_REPEATS more
+   calls, kernel ms (as phase 4), profiler ms of each of the two kernels,
+   wrapper and plain ms, the library time (torch.autograd.grad through
+   one F.scaled_dot_product_attention call, for the soft cap through one
+   flex_softcap call, whose gradients are held to the plain version's
+   within BWD_TOL; the port never calls either) and the bound: 10 D
+   operations per live (query, key) pair over the peak of the type,
+   against q, k, v, o, dO, dq, dk and dv over 3.35 TB/s;
+6t. the train path (slice 13), through repro_torch.launch.train.main:
+   full-width gemma3-1b (26 layers, d 1152, vocab 262144), float32
+   params, bf16 compute, 2 clients, batch 1, 2048 tokens (above the local
+   layers' window of 1024), 1 local step, 2 periods of at most 2 rounds,
+   coop on "pallas", with a period of TRAIN["period_s"] (the paper's 20 s
+   fits no round of a 1 B-parameter service: t* = 1514 s).  Counted from
+   0 just before it: exactly n_layers x local steps x rounds launches of
+   flash_attention and of flash_attention_bwd (the clients folded into
+   one launch), TRAIN_B1_PER_PERIOD bisect_alloc a period and no other
+   kernel; finite losses; peak GB and ms a round.  Then, each its own
+   counted path: one round of the reduced gemma3-1b in float32 on the card
+   and on the CPU from one parameter set and batch (loss and each leaf's
+   change within MODEL_TOL of the CPU's largest change of the leaf), and a
+   smoke-size co-trained episode (run_cotrain_scan, task "zoo", gemma3-1b)
+   on "pallas", whose durations equal those on "reference" and of plain
+   run_scan; and, outside the paths, B6 and B7 refuse CUDA inputs that
+   require grad (no backward yet: ROADMAP), launching nothing;
 7. the allocation paths, each driven with the launch counts set to 0 just
    before it and read just after:
    a. slice 1: run_scan episodes of coop (warm and cold), es, pp and ec
@@ -253,10 +286,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    call on the CPU agrees), and charges(method="prefix") against "rerun"
    at N = 256 (the rerun builds an (N, N*M) book);
 9. the kernels line: per kernel, its launches on the paths of phases 2b,
-   5, 6z and 7 (summed; 7d, 7e and 7f must each launch each of B1-B4), its
+   5, 6z, 6t and 7 (summed; 7d, 7e and 7f must each launch each of B1-B4), its
    deviation, times and bound (B1 and B2 at 10 x
-   45, B3 and B4 at the market shape); B7's row lists its
-   two bf16 kernels under "parts" (a launch count is a call of both).
+   45, B3 and B4 at the market shape, B5's backward at the train shape); B7's
+   and B5's backward's rows list their two kernels under "parts" (a launch
+   count is a call of both).
 
 Tolerances are rtol and atol as in the CPU tests, but atol is never more
 than 1e-3 of the mean |value| of the output checked: at the market shape b
@@ -312,6 +346,10 @@ KERNELS = {
     "market_clear": "src/repro/kernels/market_clear.py:86",
     "mbdf_demand": "src/repro/kernels/market_clear.py:204",
     "flash_attention": "src/repro/kernels/flash_attention.py:33",
+    # B5's backward: the Pallas kernel has none (the JAX model differentiates
+    # its plain chunked attention); the port's forward runs B5, so this pair
+    # is its gradient
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:33",
     "decode_attention": "src/repro/kernels/decode_attention.py:28",
     "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:27",
 }
@@ -404,6 +442,37 @@ ZOO_PARITY_CASES = (
     ("gemma3-1b", "gemma3-softcap50", dict(global_every=2,
                                            logit_softcap=50.0)))
 SEEDED_SEED = 0           # the seed the card and the CPU both run
+# Slice 13: B5's backward, (B, Hq, Hkv, Sq, Skv, D, window, causal,
+# softcap): the train shape (two clients folded into B) and phase 4's B5
+# cases; float32 only where BWD_FLOAT32 names the case.
+BWD_CASES = {"train_local": (2, 4, 1, 2048, 2048, 256, 1024, True, 0.0),
+             "train_global": (2, 4, 1, 2048, 2048, 256, 0, True, 0.0),
+             **{case: (b, hq, hkv, s, s, d, w, True, 0.0) for case, (
+                 b, hq, hkv, s, d, w) in FLASH_CASES.items()},
+             **ZOO_FLASH_CASES}
+BWD_FLOAT32 = ("train_local", "train_global", "ragged", "encdec_cross",
+               "local_softcap50")
+BWD_MAIN_CASE = "train_local"   # the kernels line: the train path's shape
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the largest |grad|
+BWD_REPS = 7
+BWD_REPEATS = 3
+BWD_KERNELS = ("flash_attention_bwd_dq_kernel",
+               "flash_attention_bwd_dkdv_kernel")
+OPS_PER_PAIR_BWD = 10     # per head dim: S, dP, dq, dk, dv (2 each)
+# The train path: full-width gemma3-1b through launch.train.main.
+TRAIN = dict(arch="gemma3-1b", clients=2, batch=1, seq=2048, local_steps=1,
+             periods=2, max_rounds=2, period_s=3600.0, policy="coop",
+             intra_backend="pallas")
+# coop on "pallas": the dual solve's final f*(b), then the client split
+TRAIN_B1_PER_PERIOD = 2
+TRAIN_PARITY = dict(clients=2, local_steps=2, batch=2, seq=64, lr=0.5)
+TRAIN_COTRAIN_SIM = dict(policy="coop", warm_start=True, n_services_total=2,
+                         rounds_required=4, p_arrive=2.0, max_periods=16,
+                         k_max=5, mean_clients=3.0, var_clients=1.0)
+TRAIN_COTRAIN_NET = dict(mean_clients=3.0, var_clients=1.0)
+TRAIN_COTRAIN_SPEC = dict(task="zoo", arch="gemma3-1b", seq_len=8,
+                          batch_size=2, eval_batch=2, rounds_cap=2,
+                          client_lr=0.1)
 
 
 def emit(obj) -> None:
@@ -3968,6 +4037,296 @@ def zoo_phase() -> dict:
     return {"serve": serves, "parity": zoo_parity()}
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: B5's backward and the train path.
+# ---------------------------------------------------------------------------
+
+def _grad_err(got, want, tol: float, label: str) -> float:
+    """Raise unless each of got's outputs is finite, of want's shape and
+    dtype, and within tol of want's largest |value|; returns the largest
+    deviation over that scale."""
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(w.double().abs().max())
+        dev = float((g.double() - w.double()).abs().max()) / max(scale,
+                                                                 1e-30)
+        if g.shape != w.shape or g.dtype != w.dtype or dev > tol or \
+                not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}/{name}: deviation {dev} of the "
+                                 f"largest |grad| {scale}, limit {tol}; "
+                                 f"shapes {tuple(g.shape)} "
+                                 f"{tuple(w.shape)}")
+        worst = max(worst, dev)
+    return worst
+
+
+def _bwd_profiler_ms(kern) -> dict:
+    """Mean device ms a call of each of the two backward kernels, from one
+    profiler window (_profiled_records)."""
+    kern()
+    torch.cuda.synchronize()
+    records = _profiled_records(kern, BWD_REPS, BWD_KERNELS)
+    if any(not recs for recs in records.values()):
+        raise AssertionError(f"profiler kept {({k: len(v) for k, v in records.items()})} "
+                             f"records of {BWD_KERNELS}")
+    return {name: sum(e.time_range.elapsed_us() for e in recs) / len(recs)
+            / 1e3 for name, recs in records.items()}
+
+
+def attention_bwd_phase() -> dict:
+    """Phase 6b: B5's backward kernels against their plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = torch.finfo(dtype).bits // 8
+        peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+        for case, (b, hq, hkv, sq, skv, d, window, causal,
+                   cap) in BWD_CASES.items():
+            if dtype == torch.float32 and case not in BWD_FLOAT32:
+                continue
+            q, k, v, do = _heads(gen, dtype, (b, hq, sq, d), (b, hkv, skv, d),
+                                 (b, hkv, skv, d), (b, hq, sq, d))
+            opts = (causal, window, cap)
+            o = ops.flash_attention_op(q, k, v, *opts)
+
+            def kern():
+                return ops.flash_attention_bwd_op(q, k, v, o, do, *opts)
+
+            def plain():
+                return flash_attention_bwd_plain(
+                    q, k, v, o, do, causal=causal, window=window,
+                    softcap=cap)
+
+            label = f"flash_attention_bwd/{case}/{dtype}"
+            first = kern()
+            torch.cuda.synchronize()
+            err = _grad_err(first, plain(), BWD_TOL[dtype], label)
+            repeats = bitwise_repeats(label, kern, first, BWD_REPEATS)
+            ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+            library_err = None
+            if cap:
+                out = flex_softcap(ql, kl, vl, cap, window)()
+            else:
+                mask = _sdpa_mask(sq, window) if window else None
+                out = F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
+
+            def library():
+                return torch.autograd.grad(out, (ql, kl, vl), do,
+                                           retain_graph=True)
+
+            if cap:
+                library_err = _grad_err(library(), plain(), BWD_TOL[dtype],
+                                        f"flex {label}")
+            work = OPS_PER_PAIR_BWD * d * b * hq * _live_pairs(
+                sq, window, causal, skv)
+            nbytes = elt * (4 * b * hq * sq * d + 4 * b * hkv * skv * d)
+            bound_ms, bound_by = bound(work, nbytes, peak)
+            ms = device_ms(kern, reps=BWD_REPS)
+            parts = _bwd_profiler_ms(kern)
+            row = {"name": "flash_attention_bwd", "case": case,
+                   "dtype": str(dtype).split(".")[-1],
+                   "shape": [b, hq, hkv, sq, skv, d], "window": window,
+                   "causal": causal, "softcap": cap,
+                   "max_abs_err": err, "err_of": "largest |grad|",
+                   "tol": BWD_TOL[dtype], "bitwise_repeats": repeats,
+                   "ms": ms, "profiler_ms": sum(parts.values()),
+                   "kernels": parts,
+                   "wrapper_ms": event_ms(kern, reps=BWD_REPS),
+                   "plain_ms": event_ms(plain, reps=BWD_REPS),
+                   "library_ms": device_ms(library, reps=BWD_REPS),
+                   "library_max_abs_err": library_err,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tflop_per_s": work / ms / 1e9,
+                   "share_of_bound": bound_ms / ms, "gflop": work / 1e9,
+                   "mbytes": nbytes / 1e6}
+            emit({"phase": "attention_bwd", **row})
+            rows[case, dtype] = row
+            del q, k, v, do, o, first, ql, kl, vl, out, library
+            torch.cuda.empty_cache()
+    return rows
+
+
+def train_run() -> dict:
+    """The train path's run through the entry point a user calls."""
+    from repro_torch.launch import train
+
+    t = TRAIN
+    argv = ["--services", t["arch"], "--no-reduced", "--clients",
+            str(t["clients"]), "--batch", str(t["batch"]), "--seq",
+            str(t["seq"]), "--local-steps", str(t["local_steps"]),
+            "--periods", str(t["periods"]), "--max-rounds-per-period",
+            str(t["max_rounds"]), "--period-s", str(t["period_s"]),
+            "--policy", t["policy"], "--intra-backend", t["intra_backend"],
+            "--device", DEVICE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def train_parity() -> dict:
+    """One round of the reduced gemma3-1b (float32) on the card and on the
+    CPU from one parameter set and batch."""
+    from repro_torch import configs
+    from repro_torch.fl import server
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves_with_names
+
+    cfg = configs.get_smoke_config(TRAIN["arch"])
+    if cfg.compute_dtype != torch.float32:
+        raise AssertionError(f"{cfg.name}'s smoke config is not float32")
+    model = registry.build_model(cfg)
+    params = model.init(0, device="cpu")
+    t = TRAIN_PARITY
+    gen = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (t["clients"], t["local_steps"],
+                                            t["batch"], t["seq"] + 1),
+                        generator=gen)
+    batches = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+    weights = torch.ones((t["clients"],))
+    step = server.make_fl_round_step(model.loss,
+                                     local_steps=t["local_steps"],
+                                     client_lr=t["lr"])
+    cpu_new, cpu_m = step(params, batches, weights)
+    card_new, card_m = step(_to_device(params), _to_device(batches),
+                            weights.to(DEVICE))
+    loss_dev = abs(float(card_m["loss"]) - float(cpu_m["loss"]))
+    if loss_dev > MODEL_TOL * (1 + abs(float(cpu_m["loss"]))):
+        raise AssertionError(f"train parity: loss {float(card_m['loss'])} "
+                             f"on the card, {float(cpu_m['loss'])} on the "
+                             f"CPU")
+    worst = 0.0
+    for (name, new_c), (_, new_h), (_, old) in zip(
+            leaves_with_names(card_new), leaves_with_names(cpu_new),
+            leaves_with_names(params)):
+        change = (new_h - old).double()
+        dev = float(((new_c.cpu() - old).double() - change).abs().max())
+        scale = float(change.abs().max())
+        if dev > MODEL_TOL * max(scale, 1e-12):
+            raise AssertionError(f"train parity: {name} changed {dev} apart "
+                                 f"(largest change {scale})")
+        worst = max(worst, dev / max(scale, 1e-12))
+    row = {"arch": cfg.name, "config": "smoke (float32)", **t,
+           "loss_card": float(card_m["loss"]), "loss_cpu": float(cpu_m["loss"]),
+           "loss_dev": loss_dev, "max_change_dev": worst, "tol": MODEL_TOL}
+    emit({"phase": "train_parity", **row})
+    return row
+
+
+def cotrain_zoo() -> dict:
+    """A smoke-size co-trained episode of the zoo task on "pallas": its
+    durations equal "reference"'s and plain run_scan's."""
+    from repro_torch.core import network
+    from repro_torch.fl import cotrain, simulator
+
+    net = network.NetworkConfig(**TRAIN_COTRAIN_NET)
+    spec = cotrain.TrainSpec(**TRAIN_COTRAIN_SPEC)
+    runs = {}
+    for backend in ("pallas", "reference"):
+        cfg = simulator.SimConfig(**TRAIN_COTRAIN_SIM, intra_backend=backend)
+        t0 = time.perf_counter()
+        runs[backend] = cotrain.run_cotrain_scan(cfg, spec, net,
+                                                 device=DEVICE)
+        runs[backend]["seconds"] = time.perf_counter() - t0
+    plain = simulator.run_scan(simulator.SimConfig(
+        **TRAIN_COTRAIN_SIM, intra_backend="pallas"), net, device=DEVICE)
+    got = runs["pallas"]
+    if not got["durations"] == runs["reference"]["durations"] == \
+            plain["durations"]:
+        raise AssertionError(f"cotrain zoo: durations {got['durations']}, "
+                             f"reference {runs['reference']['durations']}, "
+                             f"run_scan {plain['durations']}")
+    h = got["history"]
+    if not (np.all(np.isfinite(h["loss"])) and sum(got["trained_rounds"]) > 0
+            and np.all((h["acc"] >= 0) & (h["acc"] <= 1))):
+        raise AssertionError(f"cotrain zoo: trained {got['trained_rounds']}, "
+                             f"loss {h['loss'].tolist()}")
+    row = {"arch": spec.arch, "durations": got["durations"],
+           "trained_rounds": got["trained_rounds"],
+           "periods": got["periods"], "seconds": got["seconds"],
+           "reference_seconds": runs["reference"]["seconds"],
+           "final_loss": h["loss"][-1].tolist()}
+    emit({"phase": "cotrain_zoo", **row})
+    return row
+
+
+def grad_guards() -> dict:
+    """B6 and B7 have no backward: on CUDA inputs that require grad their
+    wrappers raise (naming ROADMAP) and launch nothing."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    q, k, v = _heads(gen, torch.bfloat16, (2, 4, 64), (2, 16, 1, 64),
+                     (2, 16, 1, 64))
+    mq, mk, mv = _heads(gen, torch.bfloat16, *[(1, 2, 64, 64)] * 3)
+    i_gate, f_gate = _heads(gen, torch.bfloat16, (1, 2, 64), (1, 2, 64))
+    calls = {"decode_attention": lambda: ops.attention_decode(
+                 q.requires_grad_(), k, v, 8),
+             "mlstm_chunk": lambda: ops.mlstm(mq, mk.requires_grad_(), mv,
+                                              i_gate, f_gate)}
+    before = dict(ops.LAUNCHES)
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as exc:
+            if "ROADMAP" not in str(exc):
+                raise
+            out[name] = str(exc)
+        else:
+            raise AssertionError(f"{name} returned under grad on the card")
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("a refused call launched a kernel")
+    emit({"phase": "grad_guards", "raised": out})
+    return out
+
+
+def train_phase() -> dict:
+    """Phase 6t: the train path (counted), then its parity, the zoo's
+    co-trained episode (each counted on its own) and the guards."""
+    from repro_torch import configs
+
+    torch.cuda.empty_cache()
+    res = drive_path("train", train_run, keep=True)
+    t = TRAIN
+    name = t["arch"]
+    rounds = res["rounds_done"][name]
+    n_layers = configs.get_config(name).n_layers
+    expected = {k: 0 for k in KERNELS}
+    expected.update(flash_attention=n_layers * t["local_steps"] * rounds,
+                    flash_attention_bwd=n_layers * t["local_steps"] * rounds,
+                    bisect_alloc=TRAIN_B1_PER_PERIOD * len(res["periods"]))
+    losses = res["services"][0]["losses"]
+    if rounds < 1 or PATH_LAUNCHES["train"] != expected:
+        raise AssertionError(f"train: {rounds} rounds launched "
+                             f"{PATH_LAUNCHES['train']}, expected {expected}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    round_s = res["services"][0]["round_s"]
+    row = {**t, "rounds": rounds, "losses": losses, "periods": res["periods"],
+           "peak_gb": (None if res["peak_bytes"] is None
+                       else res["peak_bytes"] / 1e9),
+           "ms_per_round": 1e3 * float(np.median(round_s)),
+           "round_ms": [1e3 * x for x in round_s], "wall_s": res["wall_s"],
+           "launches": PATH_LAUNCHES["train"]}
+    emit({"phase": "train", **row})
+    del res
+    torch.cuda.empty_cache()
+    return {"train": row,
+            "parity": drive_path("train_parity", train_parity, keep=True),
+            "cotrain_zoo": drive_path("cotrain_zoo", cotrain_zoo, keep=True),
+            "guards": grad_guards()}
+
+
 def _to_device(tree, device=None):
     if isinstance(tree, list):
         return [_to_device(x, device) for x in tree]
@@ -4049,11 +4408,19 @@ def main() -> int:
     zoo_phase()
     clock["zoo"] = time.perf_counter()
 
+    # --- slice 13: B5's backward, then training ----------------------------
+    attention_bwd = attention_bwd_phase()
+    clock["attention_bwd"] = time.perf_counter()
+    train_phase()
+    clock["train"] = time.perf_counter()
+
     paths = {"xlstm_serve": PATH_LAUNCHES["xlstm_serve"],
              "xlstm_forward": PATH_LAUNCHES["xlstm_forward"],
              "serve": PATH_LAUNCHES["serve"],
              **{f"zoo:{arch}": PATH_LAUNCHES[f"zoo:{arch}"]
                 for arch in ZOO_ARCHS},
+             **{path: PATH_LAUNCHES[path]
+                for path in ("train", "train_parity", "cotrain_zoo")},
              "slice1": drive_path("slice1", path_slice1),
              "selfish": drive_path("selfish", path_selfish),
              "run_batch": drive_path("run_batch", batch_pair)}
@@ -4106,11 +4473,15 @@ def main() -> int:
         rows[name] = attention[name, MAIN_CASE, torch.bfloat16]
         errors[name] = max(row["max_abs_err"] for key, row in attention.items()
                            if key[0] == name)
+    rows["flash_attention_bwd"] = attention_bwd[BWD_MAIN_CASE, torch.bfloat16]
+    errors["flash_attention_bwd"] = max(row["max_abs_err"]
+                                        for row in attention_bwd.values())
     rows["mlstm_chunk"] = mlstm["serve", torch.bfloat16]
     errors["mlstm_chunk"] = max(row["max_abs_err"] for row in mlstm.values())
     print(smi, flush=True)
     # B7 is one row: one call (one launch count) runs its two bf16 kernels,
-    # listed under "parts" with their own times.
+    # listed under "parts" with their own times; so is B5's backward (its
+    # max_abs_err is of the largest |grad|).
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{name}.cu", "replaces": where,

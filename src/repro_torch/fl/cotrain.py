@@ -33,11 +33,15 @@ Batches come from ``data.SyntheticLM``'s host stream (one vectorised draw
 per round) and are copied to the device; the eval batches are drawn once
 per episode.
 
-Train task: ``task="bigram"``, a (V, V) bigram-logit table fit by
-cross-entropy to ``SyntheticLM`` sequences (next-token argmax accuracy).
-``task="zoo"`` (an architecture of the zoo) is not ported yet and raises.
-Service i's initial table comes from ``generator(seed + 7, COTRAIN_SALT,
-i)``, a stream no other draw reads.
+Train tasks (``_Task``: init, loss, data, eval logits), each fit by
+cross-entropy to ``SyntheticLM`` sequences, next-token argmax accuracy:
+``task="bigram"``, a (V, V) bigram-logit table; ``task="zoo"``, the
+smoke config of ``TrainSpec.arch`` (``configs.get_smoke_config``) built by
+``registry.build_model``, data at its vocab, eval from ``forward``'s
+logits (an encoder-decoder raises: it needs modality frontends).
+Service i's initial params come from ``generator(seed + 7, COTRAIN_SALT,
+i)``, a stream no other draw reads; params are a tree with a leading
+service axis (a bare (N, V, V) tensor for the bigram).
 
 ``attack=`` (a ``chaos.clients.AttackSpec``) turns a seeded fraction of
 client slots Byzantine: the (T, N, K) plan of ``ClientChaos`` is drawn on
@@ -66,6 +70,7 @@ from repro_torch.fl import server as fl_server
 from repro_torch.fl import service as fl_service
 from repro_torch.fl import simulator
 from repro_torch.scenarios import COTRAIN_SALT, generator
+from repro_torch.tree import tree_map
 
 # Disjoint client-id stripes per service slot inside one SyntheticLM
 # stream; the eval stream uses the top id of each stripe.
@@ -73,11 +78,6 @@ _SVC_STRIDE = 1 << 20
 _EVAL_CLIENT = _SVC_STRIDE - 1
 # Eval batches sit at a step no training round reaches.
 _EVAL_STEP = (1 << 30) + 7
-
-_ZOO_ITEM = ("task='zoo' trains a zoo architecture, which needs a backward "
-             "through the port's models and kernels (ROADMAP Queue A item "
-             "13)")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainSpec:
@@ -97,7 +97,7 @@ class TrainSpec:
     episode; ``index_bits`` is the index width priced into top-k ratios.
     """
 
-    task: str = "bigram"              # "bigram" | "zoo" (not ported)
+    task: str = "bigram"              # "bigram" | "zoo"
     arch: str = "gemma3-1b"           # zoo entry for task="zoo"
     vocab: int = 32                   # bigram table / data vocab
     seq_len: int = 8
@@ -223,8 +223,10 @@ def _eval_metrics(logits: torch.Tensor, labels: torch.Tensor):
     return loss, torch.mean(hit, dim=dims)
 
 
-def _round_steps(spec: TrainSpec, methods, attack=None) -> list[Callable]:
-    """One round step per branch method, alike but for ``compression``."""
+def _round_steps(spec: TrainSpec, loss_fn: Callable, methods,
+                 attack=None) -> list[Callable]:
+    """One round step of ``loss_fn`` per branch method, alike but for
+    ``compression``."""
     kwargs = dict(local_steps=spec.local_steps, client_lr=spec.client_lr,
                   server_lr=spec.server_lr, prox_mu=spec.prox_mu,
                   topk_frac=spec.topk_frac,
@@ -232,8 +234,8 @@ def _round_steps(spec: TrainSpec, methods, attack=None) -> list[Callable]:
                   aggregator=spec.aggregator, trim_frac=spec.trim_frac,
                   clip_norm=spec.clip_norm, byz_f=spec.byz_f,
                   weight_cap=spec.weight_cap, attack=attack)
-    return [fl_server.make_fl_round_step(bigram_loss, compression=m,
-                                         **kwargs) for m in methods]
+    return [fl_server.make_fl_round_step(loss_fn, compression=m, **kwargs)
+            for m in methods]
 
 
 def default_data(spec: TrainSpec) -> SyntheticLM:
@@ -262,17 +264,92 @@ def _tokens(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int64)
 
 
-def _check_spec(spec: TrainSpec, attack) -> None:
+@dataclasses.dataclass(frozen=True)
+class _Task:
+    """What an episode trains: ``loss(params, batch)`` of one service's
+    params; ``init(seed, n)`` -> the initial params of n services, stacked
+    on a leading axis, on the CPU; ``data`` the default batch stream;
+    ``logits(params, tokens)`` -> one service's eval logits."""
+    loss: Callable
+    init: Callable
+    data: object
+    logits: Callable
+
+
+def _bigram_task(spec: TrainSpec) -> _Task:
+    def init(seed: int, n: int) -> torch.Tensor:
+        return torch.from_numpy(default_init_params(seed, spec, n))
+
+    return _Task(bigram_loss, init, default_data(spec),
+                 lambda table, tokens: table[tokens])
+
+
+def _zoo_task(spec: TrainSpec) -> _Task:
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cfg = configs.get_smoke_config(spec.arch)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"zoo co-training supports decoder-only/ssm families; "
+            f"{spec.arch!r} is encoder-decoder (needs modality frontends)")
+    model = registry.build_model(cfg)
+
+    def init(seed: int, n: int):
+        """Service i's params from generator(seed + 7, COTRAIN_SALT, i),
+        float32 on the CPU, stacked."""
+        trees = [model.init(generator(seed + 7, COTRAIN_SALT, i),
+                            device="cpu") for i in range(n)]
+        return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=spec.seq_len,
+                       seed=spec.data_seed,
+                       temperature=spec.data_temperature)
+    return _Task(model.loss, init, data,
+                 lambda params, tokens: model.forward(params, tokens)[0])
+
+
+def _build_task(spec: TrainSpec) -> _Task:
+    if spec.task == "bigram":
+        return _bigram_task(spec)
+    if spec.task == "zoo":
+        return _zoo_task(spec)
+    raise ValueError(
+        f"unknown train task {spec.task!r}; expected 'bigram' or 'zoo'")
+
+
+def _check_spec(spec: TrainSpec, attack) -> _Task:
     if attack is not None:
         from repro_torch.chaos.clients import AttackSpec
         if not isinstance(attack, AttackSpec):
             raise TypeError(f"attack must be a chaos.clients.AttackSpec, "
                             f"got {type(attack).__name__}")
-    if spec.task == "zoo":
-        raise NotImplementedError(_ZOO_ITEM)
-    if spec.task != "bigram":
-        raise ValueError(
-            f"unknown train task {spec.task!r}; expected 'bigram' or 'zoo'")
+    return _build_task(spec)
+
+
+def _by_service(mask: torch.Tensor, new, old):
+    """Leaf by leaf, ``new`` where the (N,) ``mask`` holds, else ``old``
+    (leaves with a leading service axis)."""
+    return tree_map(lambda a, b: torch.where(
+        mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b), new, old)
+
+
+def _initial_params(task: _Task, spec: TrainSpec, init_params, seed: int,
+                    n: int, device):
+    """The episode's initial params on ``device``: ``init_params`` (the
+    bigram's (N, V, V) tables, or a tree of arrays stacked on a service
+    axis) or the task's own init."""
+    if init_params is None:
+        return tree_map(lambda x: x.to(device), task.init(seed, n))
+    if spec.task == "bigram":
+        init_params = np.array(init_params, np.float32)
+        want = (n, spec.vocab, spec.vocab)
+        if init_params.shape != want:
+            raise ValueError(f"init_params must be (n_services_total, "
+                             f"vocab, vocab) = {want}, got "
+                             f"{init_params.shape}")
+    return tree_map(lambda x: torch.as_tensor(np.asarray(x)).to(device),
+                    init_params)
 
 
 @dataclasses.dataclass
@@ -281,7 +358,7 @@ class _CotrainEpisode:
     duration: np.ndarray        # (N,) int32
     trained: np.ndarray         # (N,) int32 executed rounds
     clipped: int                # simulated rounds past rounds_cap
-    params: np.ndarray          # (N, V, V) float32 final tables
+    params: object              # final params, numpy leaves (N, ...)
     history: dict               # key -> (periods run, ...) numpy stack
     next_comp: np.ndarray       # (N,) int32 applied level after the last
     fallbacks: int
@@ -304,11 +381,10 @@ def _train_rounds(steps: list, applied_ids, params, resid, weights,
     clients = np.broadcast_to(clients, (n, k_max, e))
     loss_sum = torch.zeros((n,), dtype=torch.float32, device=device)
 
-    def pick(branches: list) -> torch.Tensor:
+    def pick(branches: list):
         out = branches[0]
         for j, x in enumerate(branches[1:], start=1):
-            sel = (applied_ids == j).reshape((-1,) + (1,) * (x.dim() - 1))
-            out = torch.where(sel, x, out)
+            out = _by_service(applied_ids == j, x, out)
         return out
 
     for r in range(int(n_train_host.max(initial=0))):
@@ -321,20 +397,18 @@ def _train_rounds(steps: list, applied_ids, params, resid, weights,
                 + (() if byz is None else (byz,)))
         outs = [vmap(step)(*args) for step in steps]
         do = r < n_train
-        params = torch.where(do[:, None, None],
-                             pick([o[0] for o in outs]), params)
+        params = _by_service(do, pick([o[0] for o in outs]), params)
         if ef:
-            resid = torch.where(do[:, None, None, None],
-                                pick([o[2] for o in outs]), resid)
+            resid = _by_service(do, pick([o[2] for o in outs]), resid)
         loss_sum = loss_sum + torch.where(
             do, pick([o[1]["loss"] for o in outs]), 0.0)
     return params, resid, loss_sum / torch.clamp(n_train, min=1)
 
 
 def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
-                         net: network.NetworkConfig, arrivals, counts,
-                         sampler, data, init_params, device, attack=None
-                         ) -> _CotrainEpisode:
+                         task: _Task, net: network.NetworkConfig, arrivals,
+                         counts, sampler, data, init_params, device,
+                         attack=None) -> _CotrainEpisode:
     """The period loop of one co-trained episode, up to and including the
     period in which every service finished (or ``max_periods``)."""
     n, k_max = cfg.n_services_total, simulator._k_cap(cfg)
@@ -348,8 +422,8 @@ def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
     time_fn = policy_mod.round_time_fn(cfg.intra_backend)
 
     plan = _comp_plan(spec, n)
-    steps = _round_steps(spec, plan.branch_methods if plan is not None
-                         else ("none",), attack)
+    steps = _round_steps(spec, task.loss, plan.branch_methods
+                         if plan is not None else ("none",), attack)
     byz_plan = None
     if attack is not None:
         from repro_torch.chaos.clients import ClientChaos
@@ -361,20 +435,15 @@ def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
     zeros_n = torch.zeros((n,), dtype=torch.int32, device=device)
     comp_ids = zeros_n
 
-    init_params = np.array(init_params, np.float32)
-    want = (n, spec.vocab, spec.vocab)
-    if init_params.shape != want:
-        raise ValueError(f"init_params must be (n_services_total, vocab, "
-                         f"vocab) = {want}, got {init_params.shape}")
-    params = torch.from_numpy(init_params).to(device)
-    resid = (torch.zeros((n, k_max) + want[1:], dtype=torch.float32,
-                         device=device) if spec.error_feedback else None)
+    params = _initial_params(task, spec, init_params, cfg.seed, n, device)
+    resid = (tree_map(lambda p: torch.zeros((n, k_max) + p.shape[1:],
+                                            dtype=p.dtype, device=device),
+                      params) if spec.error_feedback else None)
     ev = data.batches(_EVAL_STEP, spec.eval_batch,
                       np.arange(n, dtype=np.int64) * _SVC_STRIDE
                       + _EVAL_CLIENT)
     ev_tokens, ev_labels = (_tokens(ev[k], device)
                             for k in ("tokens", "labels"))
-    svc_ids = torch.arange(n, device=device)[:, None, None]
 
     arrivals_t = torch.as_tensor(np.array(arrivals), dtype=torch.int32,
                                  device=device)
@@ -434,8 +503,8 @@ def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
                 None if byz_plan is None else byz_plan[period])
             trained = trained + n_train
             trained_host += n_train_host
-            ev_loss, ev_acc = _eval_metrics(params[svc_ids, ev_tokens],
-                                            ev_labels)
+            ev_loss, ev_acc = _eval_metrics(
+                vmap(task.logits)(params, ev_tokens), ev_labels)
             if plan is not None and plan.adaptive:
                 # the control for the NEXT period, from this period's split
                 n_active = torch.sum(active.to(torch.float32))
@@ -469,7 +538,8 @@ def _run_cotrain_episode(cfg: simulator.SimConfig, spec: TrainSpec,
     return _CotrainEpisode(
         rounds_done=rounds_done.cpu().numpy(),
         duration=duration.cpu().numpy(), trained=trained.cpu().numpy(),
-        clipped=int(clipped), params=params.cpu().numpy(), history=stacked,
+        clipped=int(clipped),
+        params=tree_map(lambda x: x.cpu().numpy(), params), history=stacked,
         next_comp=comp_ids.cpu().numpy(),
         fallbacks=policy_mod.fallback_count(pol_state))
 
@@ -540,27 +610,26 @@ def run_cotrain_scan(cfg: simulator.SimConfig, train: TrainSpec | None = None,
     ``history`` curves (eval ``loss``/``acc``, ``train_loss``, simulated
     and executed rounds, participants, applied levels, the allocation), the
     ``time_s`` wall-clock axis, ``trained_rounds`` and ``clipped_rounds``,
-    the final (N, V, V) tables ``params`` (host numpy) and ``services``,
-    the episode's ``FLService`` records.
+    the final ``params`` (host numpy: the bigram's (N, V, V) tables, the
+    zoo's tree stacked on a service axis) and ``services``, the episode's
+    ``FLService`` records.
 
     ``arrivals``/``counts``/``sampler`` replace the draws as in
     ``run_scan``; ``data`` the batch stream (any object with
     ``batches(step, batch_size, client_ids)``, ``step`` an int or an array
-    of the ids' shape); ``init_params`` the (N, V, V) initial tables;
+    of the ids' shape); ``init_params`` the initial params (the bigram's
+    (N, V, V) tables, or the zoo's tree stacked on a service axis);
     ``attack`` a ``chaos.clients.AttackSpec`` (Byzantine clients, see the
     module docstring).  The episode runs on ``device`` (default: the
     card).
     """
     train = train or TrainSpec()
-    _check_spec(train, attack)
+    task = _check_spec(train, attack)
     device, net = _inputs(cfg, net, arrivals, counts, device)
     if arrivals is None:
         arrivals, counts = simulator._static_draws(cfg, net)
-    if init_params is None:
-        init_params = default_init_params(cfg.seed, train,
-                                          cfg.n_services_total)
-    ep = _run_cotrain_episode(cfg, train, net, arrivals, counts, sampler,
-                              data or default_data(train), init_params,
+    ep = _run_cotrain_episode(cfg, train, task, net, arrivals, counts,
+                              sampler, data or task.data, init_params,
                               device, attack)
     periods = len(ep.history["all_done"])
     return {
@@ -592,9 +661,10 @@ def run_cotrain_batch(cfg: simulator.SimConfig,
     (S, max_periods, N) (the periods after an episode stopped hold what
     the reference's scan computes there), params (S, N, V, V).  Seed i is
     bitwise its own ``run_cotrain_scan``.  ``arrivals``/``counts`` are
-    (S, N), ``samplers`` one per seed, ``init_params`` (S, N, V, V)."""
+    (S, N), ``samplers`` one per seed, ``init_params`` (S, N, V, V) (the
+    bigram; a zoo episode draws its own)."""
     train = train or TrainSpec()
-    _check_spec(train, attack)
+    task = _check_spec(train, attack)
     device, net = _inputs(cfg, net, arrivals, counts, device)
     seeds = [int(s) for s in seeds]
     if not seeds:
@@ -602,7 +672,7 @@ def run_cotrain_batch(cfg: simulator.SimConfig,
     if samplers is not None and len(samplers) != len(seeds):
         raise ValueError(f"got {len(samplers)} samplers for {len(seeds)} "
                          f"seeds")
-    data = data or default_data(train)
+    data = data or task.data
     n = cfg.n_services_total
     episodes, statics = [], []
     for i, seed in enumerate(seeds):
@@ -611,9 +681,9 @@ def run_cotrain_batch(cfg: simulator.SimConfig,
                     if arrivals is not None
                     else simulator._static_draws(cfg_i, net))
         init = (np.asarray(init_params)[i] if init_params is not None
-                else default_init_params(seed, train, n))
+                else None)
         episodes.append(_run_cotrain_episode(
-            cfg_i, train, net, arr, cnt,
+            cfg_i, train, task, net, arr, cnt,
             None if samplers is None else samplers[i], data, init, device,
             attack))
         statics.append((arr, cnt))
@@ -639,7 +709,8 @@ def run_cotrain_batch(cfg: simulator.SimConfig,
             fl_service.episode_services(arr, cnt, ep.rounds_done,
                                         ep.duration, cfg.rounds_required)
             for (arr, cnt), ep in zip(statics, episodes)],
-        "params": np.stack([ep.params for ep in episodes]),
+        "params": tree_map(lambda *xs: np.stack(xs),
+                           *[ep.params for ep in episodes]),
     }
 
 

@@ -13,7 +13,8 @@ denormals (the 1/TINY sentinel and the 1e-30 clamps).  ``decode_attention``
 (64 template instances: 2 dtypes x 4 head dims x G = 1..8) also gets
 ``-split-compile=0``, nvcc's optimization passes run in parallel on every
 core: on the card's host it builds in ~40 s instead of ~120 s, where the
-other sources take under 20 s.
+other sources take under 20 s.  ``flash_attention_bwd`` (16 instances: 2
+dtypes x 4 head dims x 2 kernels) gets the same flag.
 """
 from __future__ import annotations
 
@@ -28,10 +29,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
-           "flash_attention", "decode_attention", "mlstm_chunk")
+           "flash_attention", "flash_attention_bwd", "decode_attention",
+           "mlstm_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCE_FLAGS = {"decode_attention": ("-split-compile=0",)}
+SOURCE_FLAGS = {"decode_attention": ("-split-compile=0",),
+                "flash_attention_bwd": ("-split-compile=0",)}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -17,6 +17,13 @@ and multiplies with ``wgmma``; float32 runs on the FMA units.
 ``flash_attention_plain`` computes the same function with float32
 arithmetic in PyTorch ops (q, k and v upcast, one materialized softmax,
 the result cast to q's dtype), as the TPU kernel does in its blocks.
+
+The backward (no TPU counterpart: the JAX model differentiates its plain
+chunked attention) is ``csrc/flash_attention_bwd.cu``, two kernels on the
+FMA units: dq, which recomputes each row's log-sum-exp L and writes it
+with Delta = rowsum(dO o), then dk and dv, which walk the rows that see a
+key tile and sum the G heads in the block (no atomics).
+``flash_attention_bwd_plain`` is the same formula in PyTorch ops.
 """
 from __future__ import annotations
 
@@ -41,26 +48,64 @@ def softcapped(scores: torch.Tensor, softcap: float) -> torch.Tensor:
     return softcap * torch.tanh(scores / softcap) if softcap > 0 else scores
 
 
+def _scores(qg: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
+            softcap: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 (B, Hkv, G, Sq, Skv) soft-capped logits of grouped queries
+    and the softmax over the keys the mask keeps."""
+    d = qg.shape[-1]
+    scores = softcapped(torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+                        * (1.0 / math.sqrt(d)), softcap)
+    rows = torch.arange(qg.shape[3], device=qg.device)[:, None]
+    cols = torch.arange(k.shape[2], device=qg.device)[None, :]
+    mask = torch.ones((rows.shape[0], cols.shape[1]), dtype=torch.bool,
+                      device=qg.device)
+    if causal:
+        mask &= rows >= cols
+    if window > 0:
+        mask &= rows - cols < window
+    return scores, torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel -> (B, Hq, Sq, D) in q's
     dtype."""
     b, hq, s, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv = k.shape[1]
     qg = q.float().reshape(b, hkv, hq // hkv, s, d)
-    scores = softcapped(torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
-                        * (1.0 / math.sqrt(d)), softcap)
-    rows = torch.arange(s, device=q.device)[:, None]
-    cols = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((s, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= rows >= cols
-    if window > 0:
-        mask &= rows - cols < window
-    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    _, probs = _scores(qg, k, causal, window, softcap)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              dout: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of the backward kernels -> (dq, dk, dv) in the inputs'
+    dtypes: the softmax recomputed from q and k, Delta = rowsum(dO o) from
+    the forward's output ``o``, dS = P (dP - Delta), times 1 - (x / c)^2
+    under the soft cap c, then the three products, all in float32."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qg = q.float().reshape(b, hkv, g, s, d)
+    dog = dout.float().reshape(b, hkv, g, s, d)
+    scores, probs = _scores(qg, k, causal, window, softcap)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", probs, dog)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
+    delta = torch.sum(dog * o.float().reshape(b, hkv, g, s, d), dim=-1,
+                      keepdim=True)
+    ds = probs * (dp - delta) * (1.0 / math.sqrt(d))
+    if softcap > 0:
+        ds = ds * (1.0 - torch.square(scores / softcap))
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float())
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    return (dq.reshape(b, hq, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 @functools.cache
@@ -88,3 +133,38 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     1.0 / math.sqrt(d), float(softcap), stream)
     _build.check(status, "flash_attention")
     return out
+
+
+@functools.cache
+def _bwd_lib():
+    fn = _build.library("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = ([_c_void_p] * 10 + [_c_int] * 7 + [_c_void_p]
+                   + [_c_int] * 2 + [_c_float, _c_float, _c_void_p])
+    fn.restype = _c_int
+    return fn
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launch the two backward kernels on the current stream -> (dq, dk,
+    dv) in the layouts of q, k and v.  Inputs must already be validated
+    (``ops``' ``flash_attention_bwd`` op does it)."""
+    b, hq, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    stats = torch.empty((2, b, hq, s), dtype=torch.float32, device=q.device)
+    strides = [st for x in (q, k, v, o, dout, dq, dk, dv)
+               for st in x.stride()[:3]]
+    status = _bwd_lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), DTYPE_CODES[q.dtype], b,
+        hkv, hq // hkv, s, skv, d, (_c_ll * len(strides))(*strides),
+        int(causal), int(window), 1.0 / math.sqrt(d), float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention_bwd")
+    return dq, dk, dv

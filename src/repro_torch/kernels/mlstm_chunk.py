@@ -115,11 +115,10 @@ def _lib():
 
 
 def _state_out(b: int, h: int, dh: int, dev) -> tuple:
-    out = torch.empty((b * h * (dh * dh + dh + 1),), dtype=torch.float32,
-                      device=dev)
-    return (out[:b * h * dh * dh].view(b, h, dh, dh),
-            out[b * h * dh * dh:b * h * (dh * dh + dh)].view(b, h, dh),
-            out[b * h * (dh * dh + dh):].view(b, h))
+    """The final state's buffers, three tensors of their own (a custom op's
+    outputs alias nothing)."""
+    return tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                 for shape in ((b, h, dh, dh), (b, h, dh), (b, h)))
 
 
 def _y_out(q: torch.Tensor) -> torch.Tensor:

@@ -8,16 +8,34 @@ other and no switch to force either.  Every wrapper checks device, dtype
 and the mLSTM), shape and layout first, and counts its kernel launches in
 ``LAUNCHES`` (a plain integer per kernel, bumped only where the kernel is
 launched), so a run can show which kernels its main path went through.
+
+The model kernels are ``torch.library`` custom ops
+(``repro_torch::flash_attention``, ``::flash_attention_bwd``,
+``::decode_attention``, ``::mlstm_chunk``): each op's implementation
+launches the kernel for CUDA tensors and runs the plain version for CPU
+ones, and checks strides, contiguity and alignment there, on real
+tensors (under ``torch.func`` the wrappers see tensors without strides).
+B5 differentiates through its own backward kernels: ``attention`` calls
+``FlashAttention``, an ``autograd.Function`` (``torch.func`` needs one
+with ``setup_context``; the custom op's own ``register_autograd`` shares
+its context and backward) whose backward is the ``flash_attention_bwd``
+op; both ops fold a vmapped dim into the batch (``register_vmap``), so
+``vmap(grad(loss))`` over clients and services launches each kernel once
+a layer.  B6 and B7 have no backward yet: on a CUDA tensor that requires
+grad their wrappers raise (ROADMAP).
 """
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels.bisect_alloc import bisect_alloc_cuda, bisect_alloc_plain
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.dual_demand import dual_demand_cuda, dual_demand_plain
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.market_clear import (market_clear_cuda,
                                               market_clear_plain,
@@ -26,7 +44,8 @@ from repro_torch.kernels.market_clear import (market_clear_cuda,
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda, mlstm_chunk_plain
 
 KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
-                "flash_attention", "decode_attention", "mlstm_chunk")
+                "flash_attention", "flash_attention_bwd", "decode_attention",
+                "mlstm_chunk")
 MAX_K = 1024  # clients per service the kernels hold in registers (32 x 32)
 HEAD_DIMS = (32, 64, 128, 256)     # head dims the attention kernels compile
 DECODE_GROUPS = tuple(range(1, 9))  # query heads per KV head of decode
@@ -35,7 +54,8 @@ MLSTM_HEAD_DIM_STEP = 64    # mLSTM head dims: multiples of the kernel's
 MLSTM_MAX_HEAD_DIM = 1024   # head-dim tile, up to what its C slice fits
 
 # Launches per kernel; "mlstm_chunk" counts calls, each of which launches
-# the states and the outputs kernel in bfloat16 (one kernel in float32).
+# the states and the outputs kernel in bfloat16 (one kernel in float32);
+# "flash_attention_bwd" counts calls of its pair (dq, then dk and dv).
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -154,8 +174,8 @@ def mbdf_demand(alpha: torch.Tensor, t_comp: torch.Tensor, mask: torch.Tensor,
 
 
 def _check_heads(name: str, tensors: dict, d: int) -> bool:
-    """Validate the attention tensors' dtype, device and layout; True for
-    the CUDA path, False for CPU."""
+    """Validate the attention tensors' dtype, head dim and device (what a
+    ``torch.func`` tensor shows); True for the CUDA path, False for CPU."""
     first = next(iter(tensors.values()))
     if first.dtype not in ATTENTION_DTYPES:
         raise TypeError(f"{name}: need float32 or bfloat16, got {first.dtype}")
@@ -167,13 +187,23 @@ def _check_heads(name: str, tensors: dict, d: int) -> bool:
         if x.device != first.device:
             raise ValueError(f"{name}: {key} is on {x.device}, not "
                              f"{first.device}")
+    return _kernel_device(name, first)
+
+
+def _kernel_device(name: str, x: Tensor) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _check_head_dim_contiguous(name: str, tensors: dict) -> None:
+    for key, x in tensors.items():
         if x.stride(-1) != 1:
             raise ValueError(f"{name}: {key}'s head dim must be contiguous")
-    if first.device.type == "cuda":
-        return True
-    if first.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: unsupported device {first.device}")
 
 
 def _check_rows_aligned(name: str, tensors: dict) -> None:
@@ -200,6 +230,158 @@ def _check_tma_strides(name: str, tensors: dict) -> None:
                              f"{tuple(x.shape)}); TMA cannot broadcast")
 
 
+def _refuse_grad(name: str, item: str, tensors: dict) -> None:
+    """A kernel without a backward must not hand autograd a tensor it
+    cannot differentiate: raise on a CUDA tensor that requires grad."""
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in tensors.values()):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward "
+                           f"({item}); call it under torch.no_grad() or on "
+                           f"tensors that do not require grad")
+
+
+# ---------------------------------------------------------------------------
+# B5: flash attention and its backward, as custom ops.
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                       window: int, softcap: float) -> Tensor:
+    """B5 on real tensors -> (B, Hq, Sq, D) in q's dtype and layout: the
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    _check_head_dim_contiguous("attention", {"q": q, "k": k, "v": v})
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if _kernel_device("attention", q):
+        if q.dtype == torch.bfloat16:
+            _check_rows_aligned("attention", {"q": q, "k": k, "v": v})
+            _check_tma_strides("attention", {"k": k, "v": v})
+        out = flash_attention_cuda(q, k, v, **kw)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    return torch.empty_like(q).copy_(flash_attention_plain(q, k, v, **kw))
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, softcap):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                           dout: Tensor, causal: bool, window: int,
+                           softcap: float) -> tuple[Tensor, Tensor, Tensor]:
+    """B5's backward on real tensors -> (dq, dk, dv) in the layouts of q, k
+    and v: the two kernels for CUDA tensors, the plain version for CPU
+    ones.  ``o`` is the forward's output, ``dout`` its gradient."""
+    if dout.stride(-1) != 1:     # e.g. the expanded gradient of a sum
+        dout = dout.contiguous()
+    _check_head_dim_contiguous("attention backward",
+                               {"q": q, "k": k, "v": v, "o": o})
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if _kernel_device("attention backward", q):
+        out = flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return out
+    return tuple(torch.empty_like(x).copy_(g) for x, g in zip(
+        (q, k, v), flash_attention_bwd_plain(q, k, v, o, dout, **kw)))
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, o, dout, causal, window, softcap):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal, window, softcap = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.options = (causal, window, softcap)
+
+
+def _flash_backward(ctx, dout):
+    q, k, v, o = ctx.saved_tensors
+    dq, dk, dv = FlashAttentionBackward.apply(q, k, v, o, dout, *ctx.options)
+    return dq, dk, dv, None, None, None
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """B5's backward op as autograd sees it: a first derivative runs it, a
+    second one (``torch.func.grad`` of a grad, ``create_graph=True``)
+    raises instead of taking attention's curvature as zero."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, o, dout, causal, window, softcap):
+        return flash_attention_bwd_op(q, k, v, o, dout, causal, window,
+                                      softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("attention: no second derivative through B5's "
+                           "backward (ROADMAP Queue B, B5)")
+
+
+flash_attention_op.register_autograd(_flash_backward,
+                                     setup_context=_flash_setup_context)
+
+
+def _fold_batch(info, in_dims, tensors) -> list:
+    """Each tensor with its vmapped dim moved first (an unbatched one
+    expanded) and folded into the batch dim: (n, B, ...) -> (n B, ...)."""
+    n = info.batch_size
+    out = []
+    for x, dim in zip(tensors, in_dims):
+        x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+        out.append(x.reshape(n * x.shape[1], *x.shape[2:]))
+    return out
+
+
+def _unfold(x: Tensor, n: int) -> Tensor:
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+
+def _flash_vmap(info, in_dims, q, k, v, causal, window, softcap):
+    q, k, v = _fold_batch(info, in_dims[:3], (q, k, v))
+    out = flash_attention_op(q, k, v, causal, window, softcap)
+    return _unfold(out, info.batch_size), 0
+
+
+def _flash_bwd_vmap(info, in_dims, q, k, v, o, dout, causal, window,
+                    softcap):
+    grads = flash_attention_bwd_op(
+        *_fold_batch(info, in_dims[:5], (q, k, v, o, dout)), causal, window,
+        softcap)
+    return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
+
+
+flash_attention_op.register_vmap(_flash_vmap)
+flash_attention_bwd_op.register_vmap(_flash_bwd_vmap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """B5 as autograd sees it, under plain autograd and ``torch.func`` alike:
+    the forward op, the backward op; ``vmap`` runs both through their
+    folding rules."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap):
+        return flash_attention_op(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _flash_setup_context(ctx, inputs, output)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _flash_backward(ctx, dout)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               softcap: float = 0.0) -> torch.Tensor:
@@ -208,7 +390,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cross-attention).  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) with
     Skv = Sq under the causal mask, any (batch, head, position) strides ->
     (B, Hq, Sq, D) in q's dtype and layout.  ``softcap`` > 0 soft-caps the
-    scaled logits."""
+    scaled logits.  Differentiable (B5's backward kernels on the card),
+    under ``torch.func`` too."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"attention: need q (B, Hq, Sq, D) and k, v "
                          f"(B, Hkv, Skv, D), got {tuple(q.shape)}, "
@@ -226,15 +409,33 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0 or softcap < 0:
         raise ValueError(f"attention: window and softcap must be >= 0, got "
                          f"{window} and {softcap}")
-    kw = dict(causal=causal, window=window, softcap=float(softcap))
-    if _check_heads("attention", {"q": q, "k": k, "v": v}, d):
-        if q.dtype == torch.bfloat16:
-            _check_rows_aligned("attention", {"q": q, "k": k, "v": v})
-            _check_tma_strides("attention", {"k": k, "v": v})
-        out = flash_attention_cuda(q, k, v, **kw)
-        LAUNCHES["flash_attention"] += 1
+    _check_heads("attention", {"q": q, "k": k, "v": v}, d)
+    return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                float(softcap))
+
+
+# ---------------------------------------------------------------------------
+# B6 and B7 as custom ops (no backward yet).
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def decode_attention_op(q: Tensor, k: Tensor, v: Tensor, valid_len: int,
+                        softcap: float) -> Tensor:
+    """B6 on real tensors -> (B, Hq, D) in q's dtype: the kernel for CUDA
+    tensors, the plain version for CPU ones."""
+    _check_head_dim_contiguous("attention_decode", {"q": q, "k": k, "v": v})
+    if _kernel_device("attention_decode", q):
+        _check_rows_aligned("attention_decode", {"q": q, "k": k, "v": v})
+        out = decode_attention_cuda(q, k, v, valid_len, softcap=softcap)
+        LAUNCHES["decode_attention"] += 1
         return out
-    return flash_attention_plain(q, k, v, **kw)
+    return decode_attention_plain(q, k, v, valid_len,
+                                  softcap=softcap).contiguous()
+
+
+@decode_attention_op.register_fake
+def _(q, k, v, valid_len, softcap):
+    return q.new_empty(q.shape)
 
 
 def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -244,7 +445,8 @@ def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v (B, S, Hkv, D) with any (batch, position, head) strides; the first
     ``valid_len`` keys (a host int, 1 <= valid_len <= S) take part ->
     (B, Hq, D) in q's dtype.  ``softcap`` > 0 soft-caps the scaled
-    logits."""
+    logits.  Decode is never differentiated (as in the JAX package): on
+    the card, inputs that require grad raise."""
     if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"attention_decode: need q (B, Hq, D) and k, v "
                          f"(B, S, Hkv, D), got {tuple(q.shape)}, "
@@ -263,14 +465,13 @@ def attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap < 0:
         raise ValueError(f"attention_decode: softcap must be >= 0, got "
                          f"{softcap}")
-    if _check_heads("attention_decode", {"q": q, "k": k, "v": v}, d):
-        _check_rows_aligned("attention_decode", {"q": q, "k": k, "v": v})
-        out = decode_attention_cuda(q, k, v, int(valid_len),
-                                    softcap=float(softcap))
-        LAUNCHES["decode_attention"] += 1
-        return out
-    return decode_attention_plain(q, k, v, int(valid_len),
-                                  softcap=float(softcap))
+    tensors = {"q": q, "k": k, "v": v}
+    if _check_heads("attention_decode", tensors, d):
+        _refuse_grad("attention_decode", "decode is never differentiated, "
+                     "as in the JAX package; ROADMAP Queue B, B6", tensors)
+        _check_head_dim_contiguous("attention_decode", tensors)
+        _check_rows_aligned("attention_decode", tensors)
+    return decode_attention_op(q, k, v, int(valid_len), float(softcap))
 
 
 def _check_mlstm(tensors: dict) -> bool:
@@ -287,11 +488,41 @@ def _check_mlstm(tensors: dict) -> bool:
                              f"{first.device}")
         if x.ndim == 4 and x.stride(-1) != 1:
             raise ValueError(f"mlstm: {key}'s head dim must be contiguous")
-    if first.device.type == "cuda":
-        return True
-    if first.device.type == "cpu":
-        return False
-    raise ValueError(f"mlstm: unsupported device {first.device}")
+    return _kernel_device("mlstm", first)
+
+
+@torch.library.custom_op("repro_torch::mlstm_chunk", mutates_args=())
+def mlstm_chunk_op(q: Tensor, k: Tensor, v: Tensor, i_gate: Tensor,
+                   f_gate: Tensor, c0: Tensor | None, n0: Tensor | None,
+                   m0: Tensor | None
+                   ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """B7 on real tensors -> (y (B, H, S, Dh) in q's dtype, a view of a
+    (B, S, H, Dh) buffer; C, n, m float32): the kernels for CUDA tensors,
+    the plain version for CPU ones.  (c0, n0, m0) is the initial state, or
+    three Nones."""
+    state = None if c0 is None else (c0, n0, m0)
+    if _kernel_device("mlstm", q):
+        if q.dtype == torch.bfloat16:  # the tensor-core kernels' cp.async
+            _check_rows_aligned("mlstm", {"q": q, "k": k, "v": v})
+        y, (c, n, m) = mlstm_chunk_cuda(q, k, v, i_gate, f_gate, state)
+        LAUNCHES["mlstm_chunk"] += 1
+        return y, c, n, m
+    y, (c, n, m) = mlstm_chunk_plain(q, k, v, i_gate, f_gate, state)
+    return (_mlstm_y(q).copy_(y), c.contiguous(), n.contiguous(),
+            m.contiguous())
+
+
+def _mlstm_y(q: Tensor) -> Tensor:
+    b, h, s, dh = q.shape
+    return q.new_empty((b, s, h, dh)).transpose(1, 2)
+
+
+@mlstm_chunk_op.register_fake
+def _(q, k, v, i_gate, f_gate, c0, n0, m0):
+    b, h, _, dh = q.shape
+    f32 = dict(dtype=torch.float32)
+    return (_mlstm_y(q), q.new_empty((b, h, dh, dh), **f32),
+            q.new_empty((b, h, dh), **f32), q.new_empty((b, h), **f32))
 
 
 def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -300,7 +531,10 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (batch, head, position) strides and a contiguous head dim, gates
     (B, H, S) with any strides, all of one dtype; ``state`` None or
     float32 contiguous (C (B, H, Dh, Dh), n (B, H, Dh), m (B, H)) ->
-    (y (B, H, S, Dh) in q's dtype, (C, n, m) float32)."""
+    (y (B, H, S, Dh) in q's dtype, (C, n, m) float32).  A CPU tensor
+    takes the plain version directly (not the op), so xLSTM trains on the
+    CPU through autograd of the plain ops; on the card, inputs that
+    require grad raise (B7's backward is ROADMAP's next item)."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"mlstm: need q, k, v of one (B, H, S, Dh) shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -320,11 +554,13 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 for x, shape in zip(state, shapes)):
             raise ValueError(f"mlstm: state must be contiguous float32 "
                              f"(C, n, m) of shapes {shapes} on {q.device}")
-    if _check_mlstm({"q": q, "k": k, "v": v, "i_gate": i_gate,
-                     "f_gate": f_gate}):
-        if q.dtype == torch.bfloat16:  # the tensor-core kernels' cp.async
-            _check_rows_aligned("mlstm", {"q": q, "k": k, "v": v})
-        out = mlstm_chunk_cuda(q, k, v, i_gate, f_gate, state)
-        LAUNCHES["mlstm_chunk"] += 1
-        return out
-    return mlstm_chunk_plain(q, k, v, i_gate, f_gate, state)
+    tensors = {"q": q, "k": k, "v": v, "i_gate": i_gate, "f_gate": f_gate}
+    if not _check_mlstm(tensors):
+        return mlstm_chunk_plain(q, k, v, i_gate, f_gate, state)
+    _refuse_grad("mlstm", "B7's backward kernels and xLSTM training on the "
+                 "card are ROADMAP Queue A item 13b-ii",
+                 {**tensors, **({} if state is None else
+                                dict(zip("Cnm", state)))})
+    y, c, n, m = mlstm_chunk_op(q, k, v, i_gate, f_gate,
+                                *(state or (None, None, None)))
+    return y, (c, n, m)

@@ -105,7 +105,10 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     # ---- load-balancing aux loss (Switch/GShard form) ----
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(expert_ids[:, 0], e).float(), dim=0)
+    # one-hot by comparison: F.one_hot reads the ids' max on the host,
+    # which torch.func.vmap cannot
+    first = expert_ids[:, :1] == torch.arange(e, device=dev)
+    ce = torch.mean(first.float(), dim=0)
     aux_loss = e * torch.sum(me * ce)
 
     # ---- sort-scatter dispatch ----
@@ -122,10 +125,13 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     keep = pos_in_expert < cap                                 # capacity drop
     dest = sorted_expert * cap + torch.where(keep, pos_in_expert, 0)
 
-    # kept slots own their rows; dropped ones (zeros) go to a spare row
+    # kept slots own their rows; dropped ones (zeros) go to a spare row.
+    # Out of place (a scatter into a fresh buffer), so torch.func.vmap
+    # and grad go through it.
     gathered = xt[sorted_token] * keep[:, None].to(dtype)
-    buf = torch.zeros((e * cap + 1, d), dtype=dtype, device=dev)
-    buf[torch.where(keep, dest, e * cap)] = gathered
+    rows = torch.where(keep, dest, e * cap)
+    buf = torch.zeros((e * cap + 1, d), dtype=dtype, device=dev).scatter(
+        0, rows[:, None].expand(t * k, d), gathered)
     buf = buf[:e * cap].reshape(e, cap, d)
 
     # ---- expert MLPs: one grouped product over the expert axis ----
@@ -136,8 +142,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     # ---- gather back + combine, a token's slots by ascending expert ----
     slot_out = expert_out[dest] * (sorted_gate * keep)[:, None].to(dtype)
-    per_slot = torch.empty_like(slot_out)
-    per_slot[order] = slot_out                                 # (T*k, d)
+    per_slot = slot_out[torch.argsort(order)]   # back to (token, k) order
     by_expert = torch.argsort(expert_ids, dim=-1, stable=True)  # (T, k)
     per_slot = torch.gather(per_slot.reshape(t, k, d), 1,
                             by_expert[..., None].expand(t, k, d))

@@ -247,6 +247,15 @@ class XLSTMLM:
         return logits, new_cache
 
     # ---------------- public entry points ----------------
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``forward``'s logits (no aux
+        loss), as the JAX model's.  It differentiates on the CPU, where
+        ``ops.mlstm`` runs the plain chunkwise ops; on the card the mLSTM
+        kernel has no backward yet and raises under grad."""
+        logits, _ = self.forward(params, batch["tokens"])
+        return layers.softmax_cross_entropy(logits, batch["labels"],
+                                            batch.get("loss_mask"))
+
     def prefill(self, params: Params, batch: dict, max_len: int):
         tokens = batch["tokens"]
         cache = self.init_cache(tokens.shape[0], max_len,

@@ -243,9 +243,6 @@ def test_batch_is_scan_per_seed_and_fleet_is_batch():
 
 def test_unported_options_raise():
     cfg = simulator.SimConfig(**BASE)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cotrain.run_cotrain_scan(cfg, cotrain.TrainSpec(task="zoo"), NET,
-                                 device=CPU)
     # attack= is ported: anything but a chaos.clients.AttackSpec raises
     with pytest.raises(TypeError, match="AttackSpec"):
         cotrain.run_cotrain_scan(cfg, cotrain.TrainSpec(**TRAIN), NET,

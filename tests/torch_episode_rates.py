@@ -20,6 +20,11 @@ case: periods/s of every rep and their median, the average duration, and
 the kernels launched in one episode.  Per case over the roots: the
 median of each root's medians, and whether every root's durations agree.
 
+``--cotrain`` drives ``chip_smoke.py``'s co-trained episodes instead
+(phase 7d: BENCH_cotrain's setting, ``run_cotrain_scan`` of warm
+``coop`` on "megakernel" and on "pallas", ``es``, ``pp`` and ``selfish``
+on "pallas"), with the settings of this script's own checkout.
+
 Prints one JSON object (also written to ``--out``).  ``--device cpu``
 runs it on the CPU (the kernels' plain versions) as a rehearsal.  A
 script, not a test: pytest does not collect it.
@@ -39,24 +44,41 @@ CASES = {"coop-warm": dict(policy="coop", warm_start=True),
          "selfish": dict(policy="selfish"),
          "coop-warm-megakernel": dict(policy="coop", warm_start=True,
                                       intra_backend="megakernel")}
+COTRAIN_CASES = {"coop-warm-megakernel": dict(policy="coop", warm_start=True,
+                                              intra_backend="megakernel"),
+                 "coop-warm": dict(policy="coop", warm_start=True),
+                 "es": dict(policy="es"), "pp": dict(policy="pp"),
+                 "selfish": dict(policy="selfish")}
 
 
-def worker(root: Path, reps: int, device: str) -> dict:
-    """The episodes of CASES from ``root``'s ``src/``, in this process."""
+def worker(root: Path, reps: int, device: str, cotrain: bool) -> dict:
+    """The episodes of CASES (COTRAIN_CASES) from ``root``'s ``src/``, in
+    this process."""
     sys.path.insert(0, str(root / "src"))
     import torch
 
+    from repro_torch.fl import cotrain as co
     from repro_torch.fl import simulator
     from repro_torch.kernels import ops
 
+    if cotrain:   # repro_torch is bound to root's src/ before this import
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        import chip_smoke
+        base, net, train = chip_smoke.cotrain_setting()
+
     def episode(kw: dict) -> tuple[float, dict, dict]:
-        cfg = simulator.SimConfig(**{"intra_backend": "pallas", **kw})
         before = dict(ops.LAUNCHES)
         if device != "cpu":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = simulator.run_scan(cfg, simulator._default_net(cfg),
-                                 device=device)
+        if cotrain:
+            cfg = simulator.SimConfig(**{**base, "intra_backend": "pallas",
+                                         **kw})
+            res = co.run_cotrain_scan(cfg, train, net, device=device)
+        else:
+            cfg = simulator.SimConfig(**{"intra_backend": "pallas", **kw})
+            res = simulator.run_scan(cfg, simulator._default_net(cfg),
+                                     device=device)
         if device != "cpu":
             torch.cuda.synchronize()
         sec = time.perf_counter() - t0
@@ -64,13 +86,14 @@ def worker(root: Path, reps: int, device: str) -> dict:
                 {k: v - before[k] for k, v in ops.LAUNCHES.items()
                  if v != before[k]})
 
+    cases = COTRAIN_CASES if cotrain else CASES
     out = {}
-    for name, kw in CASES.items():
+    for name, kw in cases.items():
         _, res, launches = episode(kw)
         out[name] = {"rates": [], "avg_duration": float(res["avg_duration"]),
                      "periods": int(res["periods"]), "launches": launches}
     for _ in range(reps):
-        for name, kw in CASES.items():
+        for name, kw in cases.items():
             rate, res, _ = episode(kw)
             out[name]["rates"].append(rate)
             if float(res["avg_duration"]) != out[name]["avg_duration"]:
@@ -86,12 +109,13 @@ def main() -> int:
     ap.add_argument("--roots", nargs="+", default=["."])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cotrain", action="store_true")
     ap.add_argument("--out", default="build/episode_rates.json")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(Path(args.worker).resolve(), args.reps,
-                                args.device)))
+                                args.device, args.cotrain)))
         return 0
     if args.device != "cpu":
         import torch
@@ -102,7 +126,8 @@ def main() -> int:
     for root in args.roots:
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", root, "--reps",
-             str(args.reps), "--device", args.device],
+             str(args.reps), "--device", args.device,
+             *(["--cotrain"] if args.cotrain else [])],
             capture_output=True, text=True, check=False)
         if proc.returncode:
             sys.stderr.write(proc.stderr)
@@ -110,7 +135,7 @@ def main() -> int:
         runs.append({"root": root,
                      "cases": json.loads(proc.stdout.splitlines()[-1])})
     summary = {}
-    for name in CASES:
+    for name in (COTRAIN_CASES if args.cotrain else CASES):
         per_root = {}
         for run in runs:
             per_root.setdefault(run["root"], []).append(
@@ -119,7 +144,8 @@ def main() -> int:
         summary[name] = {"median_by_root": {r: statistics.median(v)
                                             for r, v in per_root.items()},
                          "durations_agree": len(durations) == 1}
-    result = {"roots": args.roots, "reps": args.reps, "runs": runs,
+    result = {"roots": args.roots, "reps": args.reps,
+              "cotrain": args.cotrain, "runs": runs,
               "summary": summary}
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
