@@ -110,7 +110,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    score_mod, the window as its block mask; held to the plain version
    within the case's tolerance).
    Tolerances are the JAX kernel tests' (rtol = atol = 2e-5 in float32,
-   2e-2 in bfloat16).  Per case: kernel, profiler (the kernel's own name:
+   2e-2 in bfloat16).  B5's L (each row's log-sum-exp, which the forward
+   writes for the backward) against the plain version's: float32 within
+   1e-5 of the largest |L|, bf16 inputs within 1e-3 absolute (LSE_TOL).
+   Per case: kernel, profiler (the kernel's own name:
    flash_attention_wgmma_kernel for bf16 B5, flash_attention_kernel for
    float32, decode_attention_kernel, one launch a call), wrapper and plain
    times as in phase 3, the time of one
@@ -159,15 +162,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    planted faults on the card -- B6 reading one key fewer in every layer
    and in the last one only, k and v with relative noise of 1e-3 -- each
    of which must fail it) and with the soft cap 50;
-6b. B5's backward (slice 13: the kernel pair of csrc/flash_attention_bwd.cu,
-   dq then dk and dv) against flash_attention_bwd_plain on the card, on the
-   forward kernel's own output and a random dO: the train shape (B = 2
+6b. B5's backward (csrc/flash_attention_bwd.cu: slice 14's bf16 kernels on
+   wgmma, Delta, dk and dv (their float32 parts summed where the key tiles
+   are split), dq; float32 slice 13's FMA pair, dq then dk and dv, both
+   reading L from the forward) against flash_attention_bwd_plain on the
+   card, on the forward kernel's own output and L (L first held to the
+   plain one, as phase 4) and a random dO: the train shape (B = 2
    clients folded, Hq = 4, Hkv = 1, S = 2048, D = 256, window 1024 and
    global) and phase 4's B5 cases (FLASH_CASES and ZOO_FLASH_CASES), in
    bfloat16, and in float32 where BWD_FLOAT32 names the case; the
    largest |dq|, |dk|, |dv| deviation within BWD_TOL of the largest |grad|
    (2e-2 bfloat16, 1e-4 float32), the same bits over BWD_REPEATS more
-   calls, kernel ms (as phase 4), profiler ms of each of the two kernels,
+   calls, kernel ms (as phase 4), profiler ms of each kernel (BWD_KERNELS),
    wrapper and plain ms, the library time (torch.autograd.grad through
    one F.scaled_dot_product_attention call, for the soft cap through one
    flex_softcap call, whose gradients are held to the plain version's
@@ -183,7 +189,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    0 just before it: exactly n_layers x local steps x rounds launches of
    flash_attention and of flash_attention_bwd (the clients folded into
    one launch), TRAIN_B1_PER_PERIOD bisect_alloc a period and no other
-   kernel; finite losses; peak GB and ms a round.  Then, each its own
+   kernel; finite losses; peak GB and ms a round, and B5's backward ms a
+   round: 6b's profiler ms at the train shapes (train_local,
+   train_global) times the run's local and global layers a round.  (A
+   profile of the whole round: tests/torch_train_profile.py.)  Then, each
+   its own
    counted path: one round of the reduced gemma3-1b in float32 on the card
    and on the CPU from one parameter set and batch (loss and each leaf's
    change within MODEL_TOL of the CPU's largest change of the leaf), and a
@@ -456,8 +466,17 @@ BWD_MAIN_CASE = "train_local"   # the kernels line: the train path's shape
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the largest |grad|
 BWD_REPS = 7
 BWD_REPEATS = 3
-BWD_KERNELS = ("flash_attention_bwd_dq_kernel",
-               "flash_attention_bwd_dkdv_kernel")
+# The backward's kernels by dtype (slice 14: bf16 on wgmma; the sum of the
+# dk/dv parts only where flash_attention.dkdv_splits > 1).
+BWD_KERNELS = {torch.bfloat16: ("flash_attention_bwd_delta_kernel",
+                                "flash_attention_bwd_dkdv_wgmma_kernel",
+                                "flash_attention_bwd_dkdv_sum_kernel",
+                                "flash_attention_bwd_dq_wgmma_kernel"),
+               torch.float32: ("flash_attention_bwd_dq_kernel",
+                               "flash_attention_bwd_dkdv_kernel")}
+# The forward's L against the plain one: float32 of the largest |L|,
+# bf16 inputs absolute (L is float32 from the same bf16 logits).
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 OPS_PER_PAIR_BWD = 10     # per head dim: S, dP, dq, dk, dv (2 each)
 # The train path: full-width gemma3-1b through launch.train.main.
 TRAIN = dict(arch="gemma3-1b", clients=2, batch=1, seq=2048, local_steps=1,
@@ -2989,7 +3008,8 @@ def _max_err(got, want, tol: float, label: str) -> float:
 
 def attention_row(name: str, case: str, dtype, kern, plain, library,
                   work_ops: float, nbytes: float, names=(),
-                  library_err: float | None = None) -> dict:
+                  library_err: float | None = None,
+                  extra: dict | None = None) -> dict:
     """One attention case: the deviation from the plain version, the times,
     the bound, and the achieved rate of the resource that bounds the case
     (TFLOP/s of live work, or GB/s of the bytes the bound counts) with
@@ -3016,9 +3036,34 @@ def attention_row(name: str, case: str, dtype, kern, plain, library,
            "library_max_abs_err": library_err,
            "bound_ms": bound_ms, "bound_by": bound_by, **rate,
            "share_of_bound": bound_ms / ms,
-           "gflop": work_ops / 1e9, "mbytes": nbytes / 1e6}
+           "gflop": work_ops / 1e9, "mbytes": nbytes / 1e6, **(extra or {})}
     emit({"phase": "attention_vs_plain", **row})
     return row
+
+
+def lse_err(q, k, v, opts: tuple, label: str) -> dict:
+    """The forward kernel's L (B5 writes it for the backward) against the
+    plain version's, within LSE_TOL: in float32 of the largest |L|, for
+    bf16 inputs absolute."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain_lse
+
+    causal, window, cap = opts
+    _, got = ops.flash_attention_op(q, k, v, causal, window, cap)
+    _, want = flash_attention_plain_lse(q, k, v, causal=causal,
+                                        window=window, softcap=cap)
+    torch.cuda.synchronize()
+    dev = float((got.double() - want.double()).abs().max())
+    scale = 1.0 if q.dtype == torch.bfloat16 else float(
+        want.double().abs().max())
+    tol = LSE_TOL[q.dtype]
+    if got.shape != want.shape or got.dtype != torch.float32 or \
+            dev > tol * scale or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: L deviates {dev} (limit {tol} x "
+                             f"{scale}); shapes {tuple(got.shape)} "
+                             f"{tuple(want.shape)}")
+    return {"lse_max_abs_err": dev, "lse_tol": tol,
+            "lse_tol_of": "absolute" if scale == 1.0 else "largest |L|"}
 
 
 _FLEX: dict = {}
@@ -3103,7 +3148,9 @@ def attention_phase() -> dict:
                 lambda: flash_attention_plain(q, k, v, **kw), library,
                 4.0 * d * b * hq * _live_pairs(sq, window, causal, skv),
                 elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d),
-                names=(flash_kernel[dtype],), library_err=library_err)
+                names=(flash_kernel[dtype],), library_err=library_err,
+                extra=lse_err(q, k, v, (causal, window, cap),
+                              f"flash_attention/{case}/{dtype}"))
         for case, (b, hq, hkv, cache, d, valid, lo,
                    cap) in decode_cases.items():
             q, k, v = _heads(gen, dtype, (b, hq, d), (b, cache, hkv, d),
@@ -4060,15 +4107,16 @@ def _grad_err(got, want, tol: float, label: str) -> float:
     return worst
 
 
-def _bwd_profiler_ms(kern) -> dict:
-    """Mean device ms a call of each of the two backward kernels, from one
-    profiler window (_profiled_records)."""
+def _bwd_profiler_ms(kern, names) -> dict:
+    """Mean device ms a call of each of the backward's kernels ``names``,
+    from one profiler window (_profiled_records)."""
     kern()
     torch.cuda.synchronize()
-    records = _profiled_records(kern, BWD_REPS, BWD_KERNELS)
+    records = _profiled_records(kern, BWD_REPS, names)
     if any(not recs for recs in records.values()):
-        raise AssertionError(f"profiler kept {({k: len(v) for k, v in records.items()})} "
-                             f"records of {BWD_KERNELS}")
+        raise AssertionError(f"profiler kept "
+                             f"{({k: len(v) for k, v in records.items()})} "
+                             f"records of {names}")
     return {name: sum(e.time_range.elapsed_us() for e in recs) / len(recs)
             / 1e3 for name, recs in records.items()}
 
@@ -4077,7 +4125,8 @@ def attention_bwd_phase() -> dict:
     """Phase 6b: B5's backward kernels against their plain version."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _bisect, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
 
     gen = torch.Generator(device=DEVICE).manual_seed(17)
@@ -4092,17 +4141,18 @@ def attention_bwd_phase() -> dict:
             q, k, v, do = _heads(gen, dtype, (b, hq, sq, d), (b, hkv, skv, d),
                                  (b, hkv, skv, d), (b, hq, sq, d))
             opts = (causal, window, cap)
-            o = ops.flash_attention_op(q, k, v, *opts)
+            label = f"flash_attention_bwd/{case}/{dtype}"
+            lse_row = lse_err(q, k, v, opts, label)
+            o, lse = ops.flash_attention_op(q, k, v, *opts)
 
             def kern():
-                return ops.flash_attention_bwd_op(q, k, v, o, do, *opts)
+                return ops.flash_attention_bwd_op(q, k, v, o, lse, do, *opts)
 
             def plain():
                 return flash_attention_bwd_plain(
-                    q, k, v, o, do, causal=causal, window=window,
+                    q, k, v, o, lse, do, causal=causal, window=window,
                     softcap=cap)
 
-            label = f"flash_attention_bwd/{case}/{dtype}"
             first = kern()
             torch.cuda.synchronize()
             err = _grad_err(first, plain(), BWD_TOL[dtype], label)
@@ -4129,13 +4179,20 @@ def attention_bwd_phase() -> dict:
             nbytes = elt * (4 * b * hq * sq * d + 4 * b * hkv * skv * d)
             bound_ms, bound_by = bound(work, nbytes, peak)
             ms = device_ms(kern, reps=BWD_REPS)
-            parts = _bwd_profiler_ms(kern)
+            splits = 1
+            if dtype == torch.bfloat16:
+                splits = fa.dkdv_splits(b * hkv * -(-skv // 64),
+                                        _bisect.sm_count(DEVICE))
+            names = tuple(n for n in BWD_KERNELS[dtype]
+                          if splits > 1 or "_sum_" not in n)
+            parts = _bwd_profiler_ms(kern, names)
             row = {"name": "flash_attention_bwd", "case": case,
                    "dtype": str(dtype).split(".")[-1],
                    "shape": [b, hq, hkv, sq, skv, d], "window": window,
                    "causal": causal, "softcap": cap,
                    "max_abs_err": err, "err_of": "largest |grad|",
                    "tol": BWD_TOL[dtype], "bitwise_repeats": repeats,
+                   **lse_row, "dkdv_splits": splits,
                    "ms": ms, "profiler_ms": sum(parts.values()),
                    "kernels": parts,
                    "wrapper_ms": event_ms(kern, reps=BWD_REPS),
@@ -4148,7 +4205,7 @@ def attention_bwd_phase() -> dict:
                    "mbytes": nbytes / 1e6}
             emit({"phase": "attention_bwd", **row})
             rows[case, dtype] = row
-            del q, k, v, do, o, first, ql, kl, vl, out, library
+            del q, k, v, do, o, lse, first, ql, kl, vl, out, library
             torch.cuda.empty_cache()
     return rows
 
@@ -4290,9 +4347,11 @@ def grad_guards() -> dict:
     return out
 
 
-def train_phase() -> dict:
+def train_phase(bwd_rows: dict) -> dict:
     """Phase 6t: the train path (counted), then its parity, the zoo's
-    co-trained episode (each counted on its own) and the guards."""
+    co-trained episode (each counted on its own) and the guards.
+    ``bwd_rows`` are phase 6b's, whose profiler ms at the train shapes
+    give B5's backward ms a round."""
     from repro_torch import configs
 
     torch.cuda.empty_cache()
@@ -4300,7 +4359,8 @@ def train_phase() -> dict:
     t = TRAIN
     name = t["arch"]
     rounds = res["rounds_done"][name]
-    n_layers = configs.get_config(name).n_layers
+    cfg = configs.get_config(name)
+    n_layers = cfg.n_layers
     expected = {k: 0 for k in KERNELS}
     expected.update(flash_attention=n_layers * t["local_steps"] * rounds,
                     flash_attention_bwd=n_layers * t["local_steps"] * rounds,
@@ -4312,11 +4372,19 @@ def train_phase() -> dict:
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"train: losses {losses}")
     round_s = res["services"][0]["round_s"]
+    n_global = sum(cfg.is_global_layer(i) for i in range(n_layers))
+    per_round = {"train_local": (n_layers - n_global) * t["local_steps"],
+                 "train_global": n_global * t["local_steps"]}
+    bwd_ms = sum(n * bwd_rows[case, torch.bfloat16]["profiler_ms"]
+                 for case, n in per_round.items())
     row = {**t, "rounds": rounds, "losses": losses, "periods": res["periods"],
            "peak_gb": (None if res["peak_bytes"] is None
                        else res["peak_bytes"] / 1e9),
            "ms_per_round": 1e3 * float(np.median(round_s)),
            "round_ms": [1e3 * x for x in round_s], "wall_s": res["wall_s"],
+           "bwd_launches_per_round": per_round,
+           "bwd_ms_per_round": bwd_ms,
+           "bwd_share_of_round": bwd_ms / (1e3 * float(np.median(round_s))),
            "launches": PATH_LAUNCHES["train"]}
     emit({"phase": "train", **row})
     del res
@@ -4411,7 +4479,7 @@ def main() -> int:
     # --- slice 13: B5's backward, then training ----------------------------
     attention_bwd = attention_bwd_phase()
     clock["attention_bwd"] = time.perf_counter()
-    train_phase()
+    train_phase(attention_bwd)
     clock["train"] = time.perf_counter()
 
     paths = {"xlstm_serve": PATH_LAUNCHES["xlstm_serve"],

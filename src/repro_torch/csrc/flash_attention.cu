@@ -15,6 +15,13 @@
 // position) strides with the head dim contiguous, so the model hands in
 // transposed views of its (B, S, H, D) projections without a copy.
 //
+// Beside out, both kernels write each row's log-sum-exp L = log sum_j
+// exp(x_ij) of its masked, soft-capped logits to lse, float32 (B, Hq, Sq)
+// contiguous, in natural-log units (the bf16 kernel keeps its max in log2
+// units and stores ln 2 (m + log2 l)): the backward (flash_attention_bwd.cu)
+// forms P from it instead of sweeping the keys a second time.  4 bytes a
+// row, against 4 D bytes of q and out each.
+//
 // Bound on this card: operations.  At gemma3-1b's prefill (B = 4, Hq = 4,
 // Hkv = 1, S = 2048, D = 256) the live (query, key) pairs need 4 D
 // operations each, about 26 GFLOP (window 1024) or 34 GFLOP (global),
@@ -67,7 +74,6 @@
 // padded by 4 floats for the float4 reads), the online softmax of a row
 // one warp (a lane per key).
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder: at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,6 +81,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"  // wgmma, descriptors, bf16 packing
+#include "tma.cuh"     // Strides, mbarriers, TMA loads, tensor maps
 
 namespace repro {
 
@@ -82,10 +89,6 @@ constexpr int kRowsPerTile = 64;
 constexpr int kKeysPerTile = 32;
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
-
-struct Strides {
-  long long b, h, s;
-};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -112,7 +115,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int hkv, int g, int s_len, int kv_len, Strides qs,
+                       float* __restrict__ lse, int hkv, int g, int s_len,
+                       int kv_len, Strides qs,
                        Strides ks, Strides vs, Strides os, int causal,
                        int window, float scale, float cap_pre,
                        float cap_post) {
@@ -259,6 +263,12 @@ flash_attention_kernel(const float* __restrict__ q,
   }
   __syncthreads();
 
+  if (tid < kRowsPerTile && r0 + tid < n_rows) {
+    const int row = r0 + tid, head = hi * g + row % g;
+    const float l = row_l[tid];
+    lse[((long long)bi * hkv * g + head) * s_len + row / g] =
+        l > 0.f ? row_m[tid] + logf(l) : 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = r0 + rg * 4 + i;
@@ -281,95 +291,21 @@ constexpr int kBlockRows = kWgRows * kConsumers;
 constexpr int kTileKeys = 64;                 // keys per K/V tile
 constexpr int kWgmmaThreads = (1 + kConsumers) * 128;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of the bf16 kernel at head dim D: Q per consumer, then the
 // stages of (K, V), then the mbarriers; every tile 1024-byte aligned (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes).
 template <int D>
 struct WgTile {
-  static constexpr int kSwizzle = D >= 64 ? 128 : 64;   // bytes of a smem row
-  static constexpr int kCols = kSwizzle / 2;            // bf16 per smem row
-  static constexpr int kBlocks = D / kCols;             // column blocks of D
+  static constexpr int kSwizzle = RowTile<D>::kBytes;   // bytes of a smem row
   static constexpr int kStages = D == 256 ? 2 : 4;
   static constexpr int kQBytes = kWgRows * D * 2;
   static constexpr int kKVBytes = kTileKeys * D * 2;    // one K or V tile
-  static constexpr int kLayout = kSwizzle == 128 ? 1 : 2;  // descriptor type
   static constexpr int kPvN = D >= 64 ? 64 : 32;        // N of one P V wgmma
   static constexpr size_t kSmem = 1024 + size_t(kConsumers) * kQBytes +
                                   size_t(2 * kStages) * kKVBytes + 64 * 3;
 };
-
-// Which of the tensor map's dims 1-3 holds position, head and batch (the
-// host orders them by stride).
-struct TmaOrder {
-  int s, h, b;
-};
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-d tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// K-major (Q and K): rows of kSwizzle bytes, 8-row groups 8 rows apart.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  using W = WgTile<D>;
-  return desc_field(addr) | (desc_field(16) << 16) |
-         (desc_field(8 * W::kSwizzle) << 32) | ((uint64_t)W::kLayout << 62);
-}
-// MN-major (V as B of P V): column blocks of kCols dims kTileKeys rows
-// apart, 8-key groups 8 rows apart.
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  using W = WgTile<D>;
-  return desc_field(addr) | (desc_field(kTileKeys * W::kSwizzle) << 16) |
-         (desc_field(8 * W::kSwizzle) << 32) | ((uint64_t)W::kLayout << 62);
-}
-// Byte offset of the k-th 16-element step along D in a K-major tile of
-// `rows` rows: 32 bytes within a swizzled row, then the next column block.
-template <int D>
-__device__ __forceinline__ uint32_t k_step(int kk, int rows) {
-  using W = WgTile<D>;
-  constexpr int kPerRow = W::kSwizzle / 32;
-  return (kk / kPerRow) * rows * W::kSwizzle + (kk % kPerRow) * 32;
-}
 
 // Block i takes (batch x KV head) i % bh and query tile n_tiles - 1 - i / bh,
 // the heaviest tiles first.  Threads 0-127 load; 128-255 and 256-383 each
@@ -378,6 +314,7 @@ template <int D>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              TmaOrder ko, TmaOrder vo, int hkv, int bh,
@@ -429,21 +366,11 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         uint8_t* v_s = k_s + W::kKVBytes;
         const int key = t * kTileKeys;
         mbar_expect_tx(&full_k[stage], W::kKVBytes);
-#pragma unroll
-        for (int c = 0; c < W::kBlocks; ++c)
-          tma_load(k_s + c * kTileKeys * W::kSwizzle, &k_map, &full_k[stage],
-                   c * W::kCols,
-                   ko.s == 0 ? key : ko.h == 0 ? hi : bi,
-                   ko.s == 1 ? key : ko.h == 1 ? hi : bi,
-                   ko.s == 2 ? key : ko.h == 2 ? hi : bi);
+        tma_load_rows<D>(k_s, &k_map, ko, &full_k[stage], key, hi, bi,
+                         kTileKeys);
         mbar_expect_tx(&full_v[stage], W::kKVBytes);
-#pragma unroll
-        for (int c = 0; c < W::kBlocks; ++c)
-          tma_load(v_s + c * kTileKeys * W::kSwizzle, &v_map, &full_v[stage],
-                   c * W::kCols,
-                   vo.s == 0 ? key : vo.h == 0 ? hi : bi,
-                   vo.s == 1 ? key : vo.h == 1 ? hi : bi,
-                   vo.s == 2 ? key : vo.h == 2 ? hi : bi);
+        tma_load_rows<D>(v_s, &v_map, vo, &full_v[stage], key, hi, bi,
+                         kTileKeys);
       }
     }
   } else {
@@ -581,7 +508,8 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int c = 0; c < kOBlocks; ++c) {
           const uint64_t dv = mnmajor_desc<D>(
-              v_addr + c * kTileKeys * W::kSwizzle + kk * 16 * W::kSwizzle);
+              v_addr + c * kTileKeys * W::kSwizzle + kk * 16 * W::kSwizzle,
+              kTileKeys);
           if constexpr (W::kPvN == 64)
             wgmma_rs_n64(o[c], pa[kk], dv);
           else
@@ -600,6 +528,17 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int lanes = 1; lanes < 4; lanes <<= 1) {
       l_a += __shfl_xor_sync(~0u, l_a, lanes);
       l_b += __shfl_xor_sync(~0u, l_b, lanes);
+    }
+    // L = ln 2 (m + log2 l): the row's log-sum-exp of the natural-unit
+    // logits, for the backward.
+    if (tig == 0) {
+      const long long lse0 = ((long long)bi * hkv + hi) * g;
+      if (row_a < n_rows)
+        lse[(lse0 + row_a % g) * s_len + pos_a] =
+            l_a > 0.f ? (m_a + log2f(l_a)) * kLn2 : 0.f;
+      if (row_b < n_rows)
+        lse[(lse0 + row_b % g) * s_len + pos_b] =
+            l_b > 0.f ? (m_b + log2f(l_b)) * kLn2 : 0.f;
     }
     l_a = fmaxf(l_a, 1e-30f);
     l_b = fmaxf(l_b, 1e-30f);
@@ -632,92 +571,16 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 // Host side.
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime: no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-d tensor map over a strided (batch, head, position, D) bf16 view:
-// dim 0 is D, dims 1-3 the other three ordered by stride (a dim of extent
-// 1 is never stepped, so it goes last); boxes of kCols x 64 positions,
-// swizzled as the kernel reads them, zero-filled past S.
-template <int D>
-int encode_kv(CUtensorMap* map, TmaOrder* order, const void* base, int b,
-              int heads, int s_len, Strides st) {
-  using W = WgTile<D>;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  struct Dim {
-    cuuint64_t extent, stride;
-    int which;  // 0 position, 1 head, 2 batch
-  } dims[3] = {{(cuuint64_t)s_len, (cuuint64_t)st.s * 2, 0},
-               {(cuuint64_t)heads, (cuuint64_t)st.h * 2, 1},
-               {(cuuint64_t)b, (cuuint64_t)st.b * 2, 2}};
-  cuuint64_t top = D * 2;
-  for (const Dim& d : dims)
-    if (d.extent > 1 && d.stride > top) top = d.stride;
-  for (Dim& d : dims)
-    if (d.extent == 1) d.stride = top;
-  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
-    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
-      const Dim t = dims[j];
-      dims[j] = dims[j - 1];
-      dims[j - 1] = t;
-    }
-  cuuint64_t extent[4] = {D, dims[0].extent, dims[1].extent, dims[2].extent};
-  cuuint64_t stride[3] = {dims[0].stride, dims[1].stride, dims[2].stride};
-  cuuint32_t box[4] = {W::kCols, 1, 1, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i].which == 0) {
-      order->s = i;
-      box[1 + i] = kTileKeys;
-    } else if (dims[i].which == 1) {
-      order->h = i;
-    } else {
-      order->b = i;
-    }
-  }
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      extent, stride, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      W::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int b, int hkv, int g, int s_len, int kv_len, Strides qs,
-                 Strides ks, Strides vs, Strides os, int causal, int window,
-                 float scale, float softcap, cudaStream_t stream) {
+                 float* lse, int b, int hkv, int g, int s_len, int kv_len,
+                 Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                 int window, float scale, float softcap, cudaStream_t stream) {
   CUtensorMap k_map, v_map;
   TmaOrder ko, vo;
-  int err = encode_kv<D>(&k_map, &ko, k, b, hkv, kv_len, ks);
+  int err = encode_rows<D>(&k_map, &ko, k, b, hkv, kv_len, ks, kTileKeys);
   if (err != 0) return err;
-  err = encode_kv<D>(&v_map, &vo, v, b, hkv, kv_len, vs);
+  err = encode_rows<D>(&v_map, &vo, v, b, hkv, kv_len, vs, kTileKeys);
   if (err != 0) return err;
   const size_t smem = WgTile<D>::kSmem;
   cudaError_t cerr = cudaFuncSetAttribute(
@@ -728,20 +591,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   flash_attention_wgmma_kernel<D><<<n_tiles * b * hkv, kWgmmaThreads, smem,
                                     stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
-      k_map, v_map, ko, vo, hkv, b * hkv, n_tiles, g, s_len, kv_len, qs, os,
-      causal, window, scale * kLog2e, softcap > 0.f ? scale / softcap : 0.f,
+      lse, k_map, v_map, ko, vo, hkv, b * hkv, n_tiles, g, s_len, kv_len, qs,
+      os, causal, window, scale * kLog2e, softcap > 0.f ? scale / softcap : 0.f,
       softcap * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hkv, int g, int s_len, int kv_len, Strides qs, Strides ks,
-           Strides vs, Strides os, int causal, int window, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int hkv, int g, int s_len, int kv_len,
+           Strides qs, Strides ks, Strides vs, Strides os, int causal,
+           int window, float scale, float softcap, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_wgmma<D>(q, k, v, out, b, hkv, g, s_len, kv_len, qs, ks, vs,
-                           os, causal, window, scale, softcap, stream);
+    return launch_wgmma<D>(q, k, v, out, lse, b, hkv, g, s_len, kv_len, qs,
+                           ks, vs, os, causal, window, scale, softcap,
+                           stream);
   } else {
     const dim3 grid((s_len * g + kRowsPerTile - 1) / kRowsPerTile, b * hkv);
     const size_t smem = flash_smem_bytes<D>();
@@ -751,8 +615,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
     if (err != cudaSuccess) return (int)err;
     flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), hkv, g, s_len, kv_len,
-        qs, ks, vs, os, causal, window, scale,
+        static_cast<const T*>(v), static_cast<T*>(out), lse, hkv, g, s_len,
+        kv_len, qs, ks, vs, os, causal, window, scale,
         softcap > 0.f ? scale / softcap : 0.f, softcap);
     return (int)cudaGetLastError();
   }
@@ -760,14 +624,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* out,
-             int b, int hkv, int g, int s_len, int kv_len, Strides qs,
-             Strides ks, Strides vs, Strides os, int causal, int window,
-             float scale, float softcap, cudaStream_t stream) {
+             float* lse, int b, int hkv, int g, int s_len, int kv_len,
+             Strides qs, Strides ks, Strides vs, Strides os, int causal,
+             int window, float scale, float softcap, cudaStream_t stream) {
   switch (d) {
 #define REPRO_CASE(DIM)                                                    \
   case DIM:                                                                \
-    return launch<T, DIM>(q, k, v, out, b, hkv, g, s_len, kv_len, qs, ks,  \
-                          vs, os, causal, window, scale, softcap, stream);
+    return launch<T, DIM>(q, k, v, out, lse, b, hkv, g, s_len, kv_len, qs, \
+                          ks, vs, os, causal, window, scale, softcap, stream);
     REPRO_CASE(32)
     REPRO_CASE(64)
     REPRO_CASE(128)
@@ -786,23 +650,23 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
 // (batch, head, position) for each of q, k, v and out; the head dim is
 // contiguous.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int dtype, int b,
-    int hkv, int g, int s_len, int kv_len, int d, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, int causal, int window, float scale,
-    float softcap, void* stream) {
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int dtype, int b, int hkv, int g, int s_len, int kv_len, int d,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    int causal, int window, float scale, float softcap, void* stream) {
   using repro::Strides;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro::launch_d<float>(d, q, k, v, out, b, hkv, g, s_len, kv_len,
-                                  qs, ks, vs, os, causal, window, scale,
-                                  softcap, st);
+    return repro::launch_d<float>(d, q, k, v, out, lse, b, hkv, g, s_len,
+                                  kv_len, qs, ks, vs, os, causal, window,
+                                  scale, softcap, st);
   if (dtype == 1)
-    return repro::launch_d<__nv_bfloat16>(d, q, k, v, out, b, hkv, g, s_len,
-                                          kv_len, qs, ks, vs, os, causal,
-                                          window, scale, softcap, st);
+    return repro::launch_d<__nv_bfloat16>(d, q, k, v, out, lse, b, hkv, g,
+                                          s_len, kv_len, qs, ks, vs, os,
+                                          causal, window, scale, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

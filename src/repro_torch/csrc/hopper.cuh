@@ -1,7 +1,7 @@
 // hopper.cuh: the Hopper (sm_90a) building blocks shared by the bf16
-// tensor-core kernels (flash_attention, mlstm_chunk): wgmma issue, fences
-// and shared-memory matrix descriptors, bf16 packing, and 16-byte cp.async
-// into 128-byte-swizzled tiles.
+// tensor-core kernels (flash_attention and its backward, mlstm_chunk):
+// wgmma issue, fences and shared-memory matrix descriptors, bf16 packing,
+// and 16-byte cp.async into 128-byte-swizzled tiles.
 //
 // A tile row is 128 bytes (64 bf16).  In the 128-byte swizzle the 16-byte
 // chunk c of row r sits at r * 128 + ((c ^ (r & 7)) * 16): the layout TMA
@@ -93,6 +93,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// D (+)= A B, m64n32k16, both operands K-major in shared memory (A 64 x 16,
+// B 32 x 16); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D += A B, m64n64k16: A (64 x 16) in registers, B (16 x 64) MN-major in

@@ -13,8 +13,9 @@ denormals (the 1/TINY sentinel and the 1e-30 clamps).  ``decode_attention``
 (64 template instances: 2 dtypes x 4 head dims x G = 1..8) also gets
 ``-split-compile=0``, nvcc's optimization passes run in parallel on every
 core: on the card's host it builds in ~40 s instead of ~120 s, where the
-other sources take under 20 s.  ``flash_attention_bwd`` (16 instances: 2
-dtypes x 4 head dims x 2 kernels) gets the same flag.
+other sources take under 20 s.  ``flash_attention_bwd`` (18 kernels:
+the float32 pair and the bf16 ``wgmma`` pair at 4 head dims, Delta and
+the sum of the dk/dv parts) gets the same flag.
 """
 from __future__ import annotations
 

@@ -19,7 +19,10 @@ B5 differentiates through its own backward kernels: ``attention`` calls
 ``FlashAttention``, an ``autograd.Function`` (``torch.func`` needs one
 with ``setup_context``; the custom op's own ``register_autograd`` shares
 its context and backward) whose backward is the ``flash_attention_bwd``
-op; both ops fold a vmapped dim into the batch (``register_vmap``), so
+op.  The forward op returns the output and each row's log-sum-exp L,
+which it saves (not differentiable) for the backward op, so the backward
+does not recompute it; ``attention`` returns the output alone.  Both ops
+fold a vmapped dim into the batch (``register_vmap``), so
 ``vmap(grad(loss))`` over clients and services launches each kernel once
 a layer.  B6 and B7 have no backward yet: on a CUDA tensor that requires
 grad their wrappers raise (ROADMAP).
@@ -36,7 +39,7 @@ from repro_torch.kernels.dual_demand import dual_demand_cuda, dual_demand_plain
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_cuda,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain_lse)
 from repro_torch.kernels.market_clear import (market_clear_cuda,
                                               market_clear_plain,
                                               mbdf_demand_cuda,
@@ -55,7 +58,8 @@ MLSTM_MAX_HEAD_DIM = 1024   # head-dim tile, up to what its C slice fits
 
 # Launches per kernel; "mlstm_chunk" counts calls, each of which launches
 # the states and the outputs kernel in bfloat16 (one kernel in float32);
-# "flash_attention_bwd" counts calls of its pair (dq, then dk and dv).
+# "flash_attention_bwd" counts calls, each of which launches Delta, dk and
+# dv, then dq in bfloat16 (dq, then dk and dv in float32).
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -218,16 +222,35 @@ def _check_rows_aligned(name: str, tensors: dict) -> None:
                              f"(strides {x.stride()})")
 
 
+def _broadcast(x: Tensor) -> bool:
+    """A (batch, head, position) dim of extent > 1 with stride <= 0."""
+    return any(st <= 0 < n - 1 for st, n in zip(x.stride()[:-1],
+                                                 x.shape[:-1]))
+
+
 def _check_tma_strides(name: str, tensors: dict) -> None:
-    """B5's bf16 path loads k and v through TMA tensor maps, which step
-    every (batch, head, position) dim of extent > 1 by a positive stride:
-    no broadcast (stride 0) views."""
+    """B5's bf16 path loads k and v (the backward also q and dO) through
+    TMA tensor maps, which step every (batch, head, position) dim of extent
+    > 1 by a positive stride: no broadcast (stride 0) views."""
     for key, x in tensors.items():
-        if any(st <= 0 < n - 1 for st, n in zip(x.stride()[:-1],
-                                                 x.shape[:-1])):
+        if _broadcast(x):
             raise ValueError(f"{name}: {key} has a stride-0 dim "
                              f"(strides {x.stride()}, shape "
                              f"{tuple(x.shape)}); TMA cannot broadcast")
+
+
+def _dense_for_tma(x: Tensor) -> Tensor:
+    """The backward's q, o and dO in a layout its kernels read: a dense
+    copy where they could not read ``x`` as it is (a head dim that is not
+    contiguous, a stride-0 dim, a row that is not 16-byte aligned).
+    autograd, not the caller, picks dO's layout (the gradient of a sum is
+    an expanded view; through ``out.sum(0)``, a batch stride of 0), and
+    ``vmap`` folds an unbatched q into a stride-0 batch that the forward
+    reads but TMA, which loads q in the backward, cannot."""
+    if x.stride(-1) != 1 or _broadcast(x) or x.data_ptr() % 16 \
+            or any((st * x.element_size()) % 16 for st in x.stride()[:-1]):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def _refuse_grad(name: str, item: str, tensors: dict) -> None:
@@ -246,9 +269,10 @@ def _refuse_grad(name: str, item: str, tensors: dict) -> None:
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                       window: int, softcap: float) -> Tensor:
-    """B5 on real tensors -> (B, Hq, Sq, D) in q's dtype and layout: the
-    kernel for CUDA tensors, the plain version for CPU ones."""
+                       window: int, softcap: float) -> tuple[Tensor, Tensor]:
+    """B5 on real tensors -> ((B, Hq, Sq, D) in q's dtype and layout, L
+    (B, Hq, Sq) float32, each row's log-sum-exp): the kernel for CUDA
+    tensors, the plain version for CPU ones."""
     _check_head_dim_contiguous("attention", {"q": q, "k": k, "v": v})
     kw = dict(causal=causal, window=window, softcap=softcap)
     if _kernel_device("attention", q):
@@ -258,48 +282,59 @@ def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
         out = flash_attention_cuda(q, k, v, **kw)
         LAUNCHES["flash_attention"] += 1
         return out
-    return torch.empty_like(q).copy_(flash_attention_plain(q, k, v, **kw))
+    out, lse = flash_attention_plain_lse(q, k, v, **kw)
+    return torch.empty_like(q).copy_(out), lse
 
 
 @flash_attention_op.register_fake
 def _(q, k, v, causal, window, softcap):
-    return torch.empty_like(q)
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def flash_attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
-                           dout: Tensor, causal: bool, window: int,
-                           softcap: float) -> tuple[Tensor, Tensor, Tensor]:
+                           lse: Tensor, dout: Tensor, causal: bool,
+                           window: int, softcap: float
+                           ) -> tuple[Tensor, Tensor, Tensor]:
     """B5's backward on real tensors -> (dq, dk, dv) in the layouts of q, k
-    and v: the two kernels for CUDA tensors, the plain version for CPU
-    ones.  ``o`` is the forward's output, ``dout`` its gradient."""
-    if dout.stride(-1) != 1:     # e.g. the expanded gradient of a sum
-        dout = dout.contiguous()
-    _check_head_dim_contiguous("attention backward",
-                               {"q": q, "k": k, "v": v, "o": o})
+    and v: the kernels for CUDA tensors, the plain version for CPU ones.
+    ``o`` and ``lse`` are the forward's outputs, ``dout`` o's gradient."""
+    _check_head_dim_contiguous("attention backward", {"k": k, "v": v})
     kw = dict(causal=causal, window=window, softcap=softcap)
     if _kernel_device("attention backward", q):
-        out = flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
+        q_in = q
+        q, o, dout = (_dense_for_tma(x) for x in (q, o, dout))
+        lse = lse.contiguous()
+        if q.dtype == torch.bfloat16:
+            tensors = {"k": k, "v": v}
+            _check_rows_aligned("attention backward", tensors)
+            _check_tma_strides("attention backward", tensors)
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, dout, **kw)
         LAUNCHES["flash_attention_bwd"] += 1
-        return out
+        if q is not q_in:  # dq in q's own layout, as the fake gives it
+            dq = torch.empty_like(q_in).copy_(dq)
+        return dq, dk, dv
     return tuple(torch.empty_like(x).copy_(g) for x, g in zip(
-        (q, k, v), flash_attention_bwd_plain(q, k, v, o, dout, **kw)))
+        (q, k, v), flash_attention_bwd_plain(q, k, v, o, lse, dout, **kw)))
 
 
 @flash_attention_bwd_op.register_fake
-def _(q, k, v, o, dout, causal, window, softcap):
+def _(q, k, v, o, lse, dout, causal, window, softcap):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_setup_context(ctx, inputs, output):
     q, k, v, causal, window, softcap = inputs
-    ctx.save_for_backward(q, k, v, output)
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
     ctx.options = (causal, window, softcap)
 
 
-def _flash_backward(ctx, dout):
-    q, k, v, o = ctx.saved_tensors
-    dq, dk, dv = FlashAttentionBackward.apply(q, k, v, o, dout, *ctx.options)
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = FlashAttentionBackward.apply(q, k, v, o, lse, dout,
+                                              *ctx.options)
     return dq, dk, dv, None, None, None
 
 
@@ -311,8 +346,8 @@ class FlashAttentionBackward(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(q, k, v, o, dout, causal, window, softcap):
-        return flash_attention_bwd_op(q, k, v, o, dout, causal, window,
+    def forward(q, k, v, o, lse, dout, causal, window, softcap):
+        return flash_attention_bwd_op(q, k, v, o, lse, dout, causal, window,
                                       softcap)
 
     @staticmethod
@@ -346,15 +381,15 @@ def _unfold(x: Tensor, n: int) -> Tensor:
 
 def _flash_vmap(info, in_dims, q, k, v, causal, window, softcap):
     q, k, v = _fold_batch(info, in_dims[:3], (q, k, v))
-    out = flash_attention_op(q, k, v, causal, window, softcap)
-    return _unfold(out, info.batch_size), 0
+    outs = flash_attention_op(q, k, v, causal, window, softcap)
+    return tuple(_unfold(x, info.batch_size) for x in outs), (0, 0)
 
 
-def _flash_bwd_vmap(info, in_dims, q, k, v, o, dout, causal, window,
+def _flash_bwd_vmap(info, in_dims, q, k, v, o, lse, dout, causal, window,
                     softcap):
     grads = flash_attention_bwd_op(
-        *_fold_batch(info, in_dims[:5], (q, k, v, o, dout)), causal, window,
-        softcap)
+        *_fold_batch(info, in_dims[:6], (q, k, v, o, lse, dout)), causal,
+        window, softcap)
     return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
 
 
@@ -364,8 +399,8 @@ flash_attention_bwd_op.register_vmap(_flash_bwd_vmap)
 
 class FlashAttention(torch.autograd.Function):
     """B5 as autograd sees it, under plain autograd and ``torch.func`` alike:
-    the forward op, the backward op; ``vmap`` runs both through their
-    folding rules."""
+    the forward op (its L saved, not differentiable), the backward op;
+    ``vmap`` runs both through their folding rules."""
 
     generate_vmap_rule = True
 
@@ -378,8 +413,8 @@ class FlashAttention(torch.autograd.Function):
         _flash_setup_context(ctx, inputs, output)
 
     @staticmethod
-    def backward(ctx, dout):
-        return _flash_backward(ctx, dout)
+    def backward(ctx, dout, dlse):
+        return _flash_backward(ctx, dout, dlse)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -411,7 +446,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{window} and {softcap}")
     _check_heads("attention", {"q": q, "k": k, "v": v}, d)
     return FlashAttention.apply(q, k, v, bool(causal), int(window),
-                                float(softcap))
+                                float(softcap))[0]
 
 
 # ---------------------------------------------------------------------------

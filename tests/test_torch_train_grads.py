@@ -2,14 +2,18 @@
 
 * B5's backward: ``flash_attention_bwd_plain`` (the CPU body of the
   ``repro_torch::flash_attention_bwd`` op, the formula the CUDA kernels
-  compute) against ``torch.autograd`` of ``flash_attention_plain`` and
-  against ``jax.vjp`` of the JAX reference attention
-  (``repro.models.layers.chunked_attention``), over head dims, groups,
-  masks, the soft cap and ragged lengths, in float32.  Tolerance: 1e-5 of
-  the largest |grad| of each output.
+  compute, P formed from the forward's log-sum-exp L) against
+  ``torch.autograd`` of ``flash_attention_plain`` and against ``jax.vjp``
+  of the JAX reference attention (``repro.models.layers.chunked_attention``),
+  over head dims, groups, masks, the soft cap and ragged lengths, in
+  float32.  Tolerance: 1e-5 of the largest |grad| of each output.
+* The forward op's L against a float64 numpy log-sum-exp of the masked,
+  soft-capped logits, within 1e-6 of the largest |L|.
 * The ``torch.func`` plumbing: ``torch.library.opcheck`` on the custom
   ops; ``vmap(grad(...))`` through ``ops.attention``, once and nested,
-  equal to a loop over the batch.
+  equal to a loop over the batch; a dO with a stride-0 batch dim, and in
+  bfloat16 a q that ``vmap`` folded into a stride-0 batch, reach the
+  backward's launcher dense.
 * ``torch.func.grad(model.loss)`` against ``jax.grad(model.loss)`` on one
   parameter set (the JAX init carried over by ``interop``), for each family
   at smoke size, in float32.  Tolerance: per leaf, 2e-4 of the leaf's
@@ -36,10 +40,13 @@ from repro_torch import configs, interop
 from repro_torch.fl import server
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_attention_plain_lse)
 from repro_torch.models import registry
 
 ATTN_TOL = 1e-5
+LSE_TOL = 1e-6
+BF16_TOL = 2e-2     # of the largest |grad|, as on the card
 GRAD_TOL = 2e-4
 
 # (B, Hkv, G, Sq, Skv, D, causal, window, softcap)
@@ -74,10 +81,11 @@ def _rel(got, want):
 def test_bwd_plain_matches_autograd_of_plain(case):
     (q, k, v, do), kw = _attn_inputs(case)
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    out = flash_attention_plain(q, k, v, **kw)
+    out, lse = flash_attention_plain_lse(q, k, v, **kw)
     want = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
     got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
-                                    out.detach(), torch.from_numpy(do), **kw)
+                                    out.detach(), lse.detach(),
+                                    torch.from_numpy(do), **kw)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert _rel(g, w) <= ATTN_TOL
@@ -119,10 +127,17 @@ def test_custom_ops_pass_opcheck():
     torch.library.opcheck(ops.flash_attention_op, (q, k[:, :, :7],
                                                    v[:, :, :7], False, 0,
                                                    50.0))
-    o = ops.flash_attention_op(q, k, v, True, 5, 0.0).detach()
+    o, lse = (x.detach() for x in ops.flash_attention_op(q, k, v, True, 5,
+                                                         0.0))
     torch.library.opcheck(ops.flash_attention_bwd_op,
-                          (q.detach(), k.detach(), v.detach(), o,
+                          (q.detach(), k.detach(), v.detach(), o, lse,
                            t(2, 4, 12, 32), True, 5, 0.0))
+    o, lse = (x.detach() for x in ops.flash_attention_op(
+        q, k[:, :, :7], v[:, :, :7], False, 0, 50.0))
+    torch.library.opcheck(ops.flash_attention_bwd_op,
+                          (q.detach(), k[:, :, :7].detach(),
+                           v[:, :, :7].detach(), o, lse, t(2, 4, 12, 32),
+                           False, 0, 50.0))
     torch.library.opcheck(ops.decode_attention_op,
                           (t(2, 4, 32), t(2, 9, 2, 32), t(2, 9, 2, 32), 6,
                            0.0))
@@ -130,6 +145,110 @@ def test_custom_ops_pass_opcheck():
     torch.library.opcheck(ops.mlstm_chunk_op,
                           (t(1, 2, 16, 64), t(1, 2, 16, 64),
                            t(1, 2, 16, 64), g, g + 3.0, None, None, None))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_op_lse_matches_float64_logsumexp(case):
+    """The forward op's L (its CPU body, the formula the kernels write)
+    against log sum exp of the masked, soft-capped logits in float64."""
+    (q, k, v, _), kw = _attn_inputs(case, seed=3)
+    out, lse = ops.flash_attention_op(*(torch.from_numpy(x)
+                                         for x in (q, k, v)),
+                                      kw["causal"], kw["window"],
+                                      kw["softcap"])
+    b, hq, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    x = np.einsum("bhgqd,bhkd->bhgqk",
+                  q.astype(np.float64).reshape(b, hkv, hq // hkv, s, d),
+                  k.astype(np.float64)) / np.sqrt(d)
+    if kw["softcap"]:
+        x = kw["softcap"] * np.tanh(x / kw["softcap"])
+    rows, cols = np.arange(s)[:, None], np.arange(skv)[None, :]
+    keep = np.ones((s, skv), bool)
+    if kw["causal"]:
+        keep &= rows >= cols
+    if kw["window"]:
+        keep &= rows - cols < kw["window"]
+    x = np.where(keep, x, -np.inf)
+    top = x.max(axis=-1, keepdims=True)
+    want = (top[..., 0] + np.log(np.exp(x - top).sum(axis=-1))).reshape(
+        b, hq, s)
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    assert out.shape == q.shape
+    assert _rel(lse.numpy(), want) <= LSE_TOL
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_broadcast_dout_reaches_the_kernel_dense(case, monkeypatch):
+    """autograd hands the backward a dO with a batch stride of 0 (the
+    gradient of (out.sum(0) * w).sum(): w expanded over the batch).  Routed
+    as CUDA tensors (the device test patched, the launchers pointed at the
+    plain versions), the op passes it on dense, and the gradients equal
+    the plain version's."""
+    seen = []
+
+    def bwd_launcher(q, k, v, o, lse, dout, **kw):
+        seen.append(dout.stride())
+        assert dout.is_contiguous() and not ops._broadcast(dout)
+        return flash_attention_bwd_plain(q, k, v, o, lse, dout, **kw)
+
+    monkeypatch.setattr(ops, "_kernel_device", lambda name, x: True)
+    monkeypatch.setattr(ops, "flash_attention_cuda",
+                        flash_attention_plain_lse)
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda", bwd_launcher)
+    (q, k, v, do), kw = _attn_inputs(case, seed=4)
+    w = torch.from_numpy(do[0])         # (Hq, Sq, D), expanded over B
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(
+        (ops.attention(tq, tk, tv, **kw).sum(0) * w).sum(), (tq, tk, tv))
+    assert len(seen) == 1
+    pq, pk, pv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(
+        (flash_attention_plain(pq, pk, pv, **kw).sum(0) * w).sum(),
+        (pq, pk, pv))
+    for g, wnt in zip(got, want):
+        assert _rel(g.numpy(), wnt.numpy()) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("case", [c for c in ATTN_CASES if c[0] == 1],
+                         ids=str)
+def test_vmap_unbatched_q_reaches_the_bwd_kernel_dense(case, monkeypatch):
+    """``vmap`` over k and v with q unbatched and B = 1 folds q into a
+    stride-0 batch, which the forward reads.  Routed as CUDA tensors in
+    bfloat16 (the device test patched, the launchers pointed at the plain
+    versions, the TMA checks live), the backward op passes q, o and dO on
+    dense instead of refusing q, and the gradients equal a loop's."""
+    fwd_q_broadcast, seen = [], []
+
+    def fwd_launcher(q, k, v, **kw):
+        fwd_q_broadcast.append(ops._broadcast(q))
+        return flash_attention_plain_lse(q, k, v, **kw)
+
+    def bwd_launcher(q, k, v, o, lse, dout, **kw):
+        seen.append(q.stride())
+        assert not any(ops._broadcast(x) for x in (q, o, dout))
+        return flash_attention_bwd_plain(q, k, v, o, lse, dout, **kw)
+
+    monkeypatch.setattr(ops, "_kernel_device", lambda name, x: True)
+    monkeypatch.setattr(ops, "flash_attention_cuda", fwd_launcher)
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda", bwd_launcher)
+    (q, k, v, _), kw = _attn_inputs(case, seed=6)
+    rng = np.random.default_rng(7)
+    ks, vs = (torch.from_numpy(rng.standard_normal((3, *x.shape)).astype(
+        np.float32)).bfloat16() for x in (k, v))
+    tq = torch.from_numpy(q).bfloat16()
+
+    def loss(q, k, v):
+        return torch.sum(ops.attention(q, k, v, **kw).float() ** 2)
+
+    got = vmap(grad(loss, argnums=(0, 1, 2)), in_dims=(None, 0, 0))(tq, ks,
+                                                                   vs)
+    assert fwd_q_broadcast == [True] and len(seen) == 1
+    want = [torch.stack(g) for g in zip(*(
+        grad(loss, argnums=(0, 1, 2))(tq, ks[i], vs[i]) for i in range(3)))]
+    for g, wnt in zip(got, want):
+        assert g.shape == wnt.shape and g.dtype == torch.bfloat16
+        assert _rel(g.float().numpy(), wnt.float().numpy()) <= BF16_TOL
 
 
 def _attn_loss(w, x):
