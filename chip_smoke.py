@@ -34,15 +34,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    use, so bounds stay comparable), against
    the inputs, y and the state;
 2b. the xLSTM serve path (slice 4's main path), through
-   repro_torch.launch.serve.main: full-width xlstm-1.3b in bfloat16 from a
-   seeded init, batch 4, prompt 2048, 32 greedy tokens, after a warm-up
-   serve of a 256-token prompt.  Counted from 0 just before it: exactly 42
+   repro_torch.launch.serve.main: full-width xlstm-1.3b in bfloat16 cut to
+   XLSTM_SERVE's 16 of 48 layers (serve's config replaced in depth, no
+   command-line flag), from a seeded init, batch 4, prompt 2048, 32 greedy
+   tokens, after a warm-up serve of a 256-token prompt at 8 layers.
+   Counted from 0 just before it: exactly 14
    mlstm_chunk launches (one per mLSTM layer; decode steps run the plain
    recurrent step, as the JAX model does) and no other kernel; finite
    logits and a cache length of 2079; peak memory, one profiled decode
    step, and one mLSTM and one sLSTM block timed over the prompt.  Then
    one no-cache forward of the same prompts, itself a main path: again
-   exactly 42 launches, and its last logits within 5e-2 of the prefill's;
+   exactly 14 launches, and its last logits within 5e-2 of the prefill's;
 2c. the xLSTM kernel path against the plain path end to end: full-width
    xlstm-1.3b in float32 cut to 8 layers (one super-block, 7 mLSTM + 1
    sLSTM), batch 2, prompt 1024, 8 greedy tokens in lockstep, as phase 6;
@@ -157,7 +159,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (one pair, 16 routed experts), deepseek (lead + 1 MoE, 32 routed
    experts), hymba, seamless (a source of 1500 frames against the
    1024-token prompt), qwen2-vl with vision and M-RoPE, command-r's
-   parallel block, gemma3-1b with the int8 cache (its CPU side adopting
+   parallel block (one layer), gemma3-1b with the int8 cache (its CPU side adopting
    the card's quanta behind a guard; its readings per call, and two
    planted faults on the card -- B6 reading one key fewer in every layer
    and in the last one only, k and v with relative noise of 1e-3 -- each
@@ -180,6 +182,27 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    within BWD_TOL; the port never calls either) and the bound: 10 D
    operations per live (query, key) pair over the peak of the type,
    against q, k, v, o, dO, dq, dk and dv over 3.35 TB/s;
+6m. B7's backward (csrc/mlstm_chunk_bwd.cu: the scores, reverse states,
+   per-chunk gradient and gates kernels on the FMA units) against
+   mlstm_chunk_bwd_plain on the card, on the forward kernels' own saved
+   tensors (the state at every chunk of 256's start and ell, sgn per
+   position, first held to chunk_states_plain and chunk_stats_plain) and
+   a random dy, with phase 2a's input recipe on the even heads (k /
+   sqrt(Dh): the floor exp(-m_t) wins) and k as drawn on the odd ones
+   (|N_t| wins at most positions), the floor's share of the positions
+   strictly inside MLSTM_FLOOR_SHARE: the train shape (B = 2
+   clients folded, H = 4, S = 2048, Dh = 1024), the serve shape (4 x 4 x
+   2048 x 1024) and a ragged one (2 x 2 x 1100 x 128), in bfloat16, and in
+   float32 where MLSTM_BWD_FLOAT32 names the case; in each group of
+   heads, the largest |dq|, |dk|, |dv|, |di|, |df| deviation within
+   BWD_TOL of the group's largest |grad|, the
+   same bits over BWD_REPEATS more calls, each of the four kernels held
+   to its own plain version on the same inputs (mlstm_bwd_parts), kernel
+   ms, profiler ms of each kernel (MLSTM_BWD_KERNELS), wrapper and plain
+   ms, no library call, and the bound: 8 Dh^2 operations a (position,
+   head) plus 10 Dh a live (query, key) pair of a chunk, over the peak of
+   the type, against q, k, v, y, dy, dq, dk, dv, the gates and their
+   gradients, the chunk states and the statistics over 3.35 TB/s;
 6t. the train path (slice 13), through repro_torch.launch.train.main:
    full-width gemma3-1b (26 layers, d 1152, vocab 262144), float32
    params, bf16 compute, 2 clients, batch 1, 2048 tokens (above the local
@@ -193,19 +216,35 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    round: 6b's profiler ms at the train shapes (train_local,
    train_global) times the run's local and global layers a round.  (A
    profile of the whole round: tests/torch_train_profile.py.)  Then, each
-   its own
-   counted path: one round of the reduced gemma3-1b in float32 on the card
+   its own counted path: the xLSTM train path (slice 15), full-width
+   xlstm-1.3b (d_model 2048, 4 heads of Dh 1024, vocab 50304) cut to
+   XLSTM_TRAIN's 8 of 48 layers (one super-block of 7 mLSTM + 1 sLSTM;
+   launch.train's config replaced in depth, no command-line flag), 2 clients x
+   batch 1 x 2048 tokens, 1 local step, 2 periods of at most 1 round, coop
+   on "pallas": exactly 7 x local steps x rounds launches of mlstm_chunk
+   and of mlstm_chunk_bwd, TRAIN_B1_PER_PERIOD bisect_alloc a period and
+   no other kernel, finite losses, peak GB, ms a round, B7's backward ms a
+   round (6m's profiler ms at the train shape x 7; the sLSTM's and B7's
+   shares of a profiled round: tests/torch_train_profile.py --arch
+   xlstm-1.3b); one round of the
+   reduced gemma3-1b and of the reduced xlstm-1.3b in float32 on the card
    and on the CPU from one parameter set and batch (loss and each leaf's
-   change within MODEL_TOL of the CPU's largest change of the leaf), and a
-   smoke-size co-trained episode (run_cotrain_scan, task "zoo", gemma3-1b)
-   on "pallas", whose durations equal those on "reference" and of plain
-   run_scan; and, outside the paths, B6 and B7 refuse CUDA inputs that
-   require grad (no backward yet: ROADMAP), launching nothing;
+   change within MODEL_TOL of the CPU's largest change of the leaf); the
+   train entry point's default CLI (TRAIN_CLI: gemma-2b and xlstm-1.3b
+   reduced, on the card), one B5 and B5 backward a layer, one B7 and B7
+   backward a mLSTM layer, a local step a round, and no other kernel; and
+   smoke-size
+   co-trained episodes (run_cotrain_scan, task "zoo", gemma3-1b and
+   xlstm-1.3b) on "pallas", whose durations equal those on "reference"
+   and of plain run_scan; and, outside the paths, B6 refuses CUDA inputs
+   that require grad (decode is never differentiated), launching
+   nothing;
 7. the allocation paths, each driven with the launch counts set to 0 just
    before it and read just after:
    a. slice 1: run_scan episodes of coop (warm and cold), es, pp and ec
-      at the paper's setting (SimConfig defaults), each with a kernel
-      backend and with "reference" on one sampler stream, then a
+      at the paper's setting (SimConfig defaults; the cold coop pair cut
+      to SLICE1_CUTS' 120 periods and compared up to there), each with a
+      kernel backend and with "reference" on one sampler stream, then a
       market-scale warm coop episode on "megakernel": 8192 services all
       arriving at period 0 with the paper's 1 MHz per service (B = 8192
       MHz) and 100 rounds to finish, 10 periods;
@@ -298,9 +337,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 9. the kernels line: per kernel, its launches on the paths of phases 2b,
    5, 6z, 6t and 7 (summed; 7d, 7e and 7f must each launch each of B1-B4), its
    deviation, times and bound (B1 and B2 at 10 x
-   45, B3 and B4 at the market shape, B5's backward at the train shape); B7's
-   and B5's backward's rows list their two kernels under "parts" (a launch
-   count is a call of both).
+   45, B3 and B4 at the market shape, B5's and B7's backwards at the train
+   shape); B7's and B5's and B7's backwards' rows list their kernels under
+   "parts" (a launch count is a call of them all).
 
 Tolerances are rtol and atol as in the CPU tests, but atol is never more
 than 1e-3 of the mean |value| of the output checked: at the market shape b
@@ -362,6 +401,10 @@ KERNELS = {
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:33",
     "decode_attention": "src/repro/kernels/decode_attention.py:28",
     "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:27",
+    # B7's backward: as B5's, the Pallas kernel has none (the JAX model
+    # differentiates its plain chunkwise form); these kernels are the
+    # gradient of the port's B7
+    "mlstm_chunk_bwd": "src/repro/kernels/mlstm_chunk.py:27",
 }
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # rtol = atol
 MLSTM_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}      # rtol = atol
@@ -412,8 +455,10 @@ PARITY = dict(n_layers=2, batch=2, prompt_len=2048, gen=8)
 MLSTM_CASES = {"serve": (4, 4, 2048, 1024, 0),
                "ragged": (2, 2, 1100, 128, 0),
                "carry": (4, 4, 2048, 1024, 1000)}
-XLSTM_SERVE = dict(arch="xlstm-1.3b", batch=4, prompt_len=2048, gen=32,
-                   warmup_prompt_len=256)
+# xlstm-1.3b served cut to 16 of its 48 layers (two super-blocks of 7
+# mLSTM + 1 sLSTM), its warm-up to 8, for the run's time limit
+XLSTM_SERVE = dict(arch="xlstm-1.3b", n_layers=16, batch=4, prompt_len=2048,
+                   gen=32, warmup_prompt_len=256, warmup_layers=8)
 # B7's bf16 kernels; the bound keeps the first B7 kernel's count of
 # 4 Dh (Dh + 64) operations per (position, head), whatever chunk the
 # kernels use.
@@ -440,14 +485,15 @@ ZOO_PARITY = dict(n_layers=2, batch=2, prompt_len=1024, gen=8)
 # its cross-attention runs B5 over Skv != Sq and B6 up to valid_len 1500.
 ZOO_PARITY_SRC_LEN = 1500
 # (arch, label, config overrides) of the parity runs; routed experts cut
-# to fit two float32 copies (card and CPU) and the CPU's time
+# to fit two float32 copies (card and CPU) and the CPU's time, command-r
+# to one layer (its CPU side takes ~22 s at two)
 ZOO_PARITY_CASES = (
     ("llama4-maverick-400b-a17b", "llama4", dict(n_experts=16)),
     ("deepseek-v2-236b", "deepseek", dict(n_experts=32)),
     ("hymba-1.5b", "hymba", dict(global_every=2)),
     ("seamless-m4t-large-v2", "seamless", dict(n_encoder_layers=2)),
     ("qwen2-vl-7b", "qwen2-vl", {}),
-    ("command-r-35b", "command-r", {}),
+    ("command-r-35b", "command-r", dict(n_layers=1)),
     ("gemma3-1b", "gemma3-int8", dict(global_every=2, kv_cache_dtype="int8")),
     ("gemma3-1b", "gemma3-softcap50", dict(global_every=2,
                                            logit_softcap=50.0)))
@@ -465,6 +511,9 @@ BWD_FLOAT32 = ("train_local", "train_global", "ragged", "encdec_cross",
 BWD_MAIN_CASE = "train_local"   # the kernels line: the train path's shape
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the largest |grad|
 BWD_REPS = 7
+# B7's forward's ell = m_t + log(den_t) against the plain one, absolute
+# (a log: a relative error of den; ~0 wherever the floor exp(-m_t) wins)
+ELL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 BWD_REPEATS = 3
 # The backward's kernels by dtype (slice 14: bf16 on wgmma; the sum of the
 # dk/dv parts only where flash_attention.dkdv_splits > 1).
@@ -492,6 +541,35 @@ TRAIN_COTRAIN_NET = dict(mean_clients=3.0, var_clients=1.0)
 TRAIN_COTRAIN_SPEC = dict(task="zoo", arch="gemma3-1b", seq_len=8,
                           batch_size=2, eval_batch=2, rounds_cap=2,
                           client_lr=0.1)
+# Slice 15: B7's backward, (B, H, S, Dh): the train shape (two clients
+# folded into B), the serve shape and the ragged one; float32 where
+# MLSTM_BWD_FLOAT32 names the case.
+MLSTM_BWD_CASES = {"train": (2, 4, 2048, 1024), "serve": (4, 4, 2048, 1024),
+                   "ragged": (2, 2, 1100, 128)}
+MLSTM_BWD_FLOAT32 = ("train", "ragged")
+MLSTM_BWD_MAIN_CASE = "train"    # the kernels line: the train path's shape
+# 6m's heads with k / sqrt(Dh) (the floor wins) and with k as drawn (|N|
+# wins at most positions), checked apart; the share of positions where
+# the floor wins must lie strictly inside MLSTM_FLOOR_SHARE in every case
+MLSTM_FLOOR_HEADS = slice(0, None, 2)
+MLSTM_HEAD_GROUPS = {"floor_heads": MLSTM_FLOOR_HEADS,
+                     "norm_heads": slice(1, None, 2)}
+MLSTM_FLOOR_SHARE = (0.05, 0.95)
+MLSTM_BWD_KERNELS = ("mlstm_bwd_scores_kernel", "mlstm_bwd_states_kernel",
+                     "mlstm_bwd_grads_kernel", "mlstm_bwd_gates_kernel")
+# The bound's work: 8 Dh^2 a (position, head) (C dY, dC v, dC^T k and the
+# state's q~ dY^T) and 10 Dh a live (query, key) pair of a chunk (S,
+# dy v^T, dS k, dS^T q~, W^T dY), at the kernels' chunk of 256.
+OPS_PER_POS_MLSTM_BWD = 8        # x Dh^2
+OPS_PER_PAIR_MLSTM_BWD = 10      # x Dh
+# The xLSTM train path: full-width xlstm-1.3b cut to two super-blocks (7
+# mLSTM + 1 sLSTM each) through launch.train.main.
+XLSTM_TRAIN = dict(arch="xlstm-1.3b", n_layers=8, clients=2, batch=1,
+                   seq=2048, local_steps=1, periods=2, max_rounds=1,
+                   period_s=TRAIN["period_s"], policy="coop",
+                   intra_backend="pallas")
+XLSTM_TRAIN_MLSTM_LAYERS = 7
+TRAIN_CLI = ("--periods", "2")   # launch.train's defaults otherwise
 
 
 def emit(obj) -> None:
@@ -1217,6 +1295,11 @@ SLICE1 = {("coop", True, "megakernel"): ("market_clear",),
           ("es", False, "pallas"): ("bisect_alloc",),
           ("pp", False, "pallas"): ("bisect_alloc",),
           ("ec", False, "pallas"): ()}
+# Episodes cut to a number of periods, compared up to there: the cold coop
+# pair runs ~0.5 s a period on both backends (host-bound), ~205 s for the
+# whole ~205-period pair, which the run's time limit cannot hold beside the
+# xLSTM paths; at 120 periods the services that started first finish.
+SLICE1_CUTS = {("coop", False, "pallas"): 120}
 SELFISH = {("selfish", False, "pallas"): ("mbdf_demand", "bisect_alloc"),
            ("selfish", False, "megakernel"): ("mbdf_demand", "bisect_alloc")}
 EXPECTED = {**SLICE1, **SELFISH}
@@ -1510,8 +1593,11 @@ PATH_LAUNCHES: dict[str, dict] = {}
 
 def path_slice1() -> None:
     for pol, warm, backend in SLICE1:
-        run_pair(dict(policy=pol, warm_start=warm, intra_backend=backend),
-                 f"{pol}{'-warm' if warm else ''}-{backend}")
+        cut = SLICE1_CUTS.get((pol, warm, backend))
+        run_pair(dict(policy=pol, warm_start=warm, intra_backend=backend,
+                      **({} if cut is None else {"max_periods": cut})),
+                 f"{pol}{'-warm' if warm else ''}-{backend}",
+                 must_finish=cut is None)
     market_pair("coop", True, "megakernel")
 
 
@@ -3625,9 +3711,13 @@ def seeded_draws_phase() -> dict:
         "outside_operators": wall_ms - sum(v["ms"] for v in per_op.values()),
         "per_operator": per_op}
 
-    init_s = {}
+    init_s, init_layers = {}, {}
     for arch in (XLSTM_SERVE["arch"], SERVE["arch"]):
-        model = registry.build_model(configs.get_config(arch))
+        cfg = configs.get_config(arch)
+        if arch == XLSTM_SERVE["arch"]:   # the depth it is served at
+            cfg = dataclasses.replace(cfg, n_layers=XLSTM_SERVE["n_layers"])
+        init_layers[arch] = cfg.n_layers
+        model = registry.build_model(cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params = model.init(0, device=DEVICE)
@@ -3635,38 +3725,44 @@ def seeded_draws_phase() -> dict:
         init_s[arch] = time.perf_counter() - t0
         del params
         torch.cuda.empty_cache()
-    out["full_init_s"] = init_s
+    out["full_init_s"], out["full_init_layers"] = init_s, init_layers
     emit({"phase": "seeded_draws", **out})
     return out
 
 
-def _mlstm_layers(arch: str) -> int:
+def _mlstm_layers(arch: str, n_layers: int | None = None) -> int:
     from repro_torch import configs
     from repro_torch.models import registry
 
-    n_super, n_m = registry.build_model(configs.get_config(arch))._layout
+    cfg = configs.get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n_super, n_m = registry.build_model(cfg)._layout
     return n_super * n_m
 
 
 def xlstm_serve_phase() -> dict:
-    """Full-width xlstm-1.3b in bfloat16 served through the port's entry
-    point (batch 4, prompt 2048, 32 greedy tokens, after a short warm-up),
-    then one no-cache forward of the same prompts; each is a main path
-    counted from 0 (checked by main).  The forward's last logits must
-    agree with the prefill's within bf16 tolerance."""
+    """Full-width xlstm-1.3b in bfloat16, cut to XLSTM_SERVE's layers,
+    served through the port's entry point (batch 4, prompt 2048, 32 greedy
+    tokens, after a short warm-up at fewer layers), then one no-cache
+    forward of the same prompts; each is a main path counted from 0
+    (checked by main).  The forward's last logits must agree with the
+    prefill's within bf16 tolerance."""
     from repro_torch.launch import serve
 
     cfg_s = XLSTM_SERVE
     argv = ["--arch", cfg_s["arch"], "--no-reduced", "--batch",
             str(cfg_s["batch"]), "--temperature", "0", "--device", DEVICE]
-    serve.main(argv + ["--prompt-len", str(cfg_s["warmup_prompt_len"]),
-                       "--gen", "2"])
+    with cut_in_depth(cfg_s["arch"], cfg_s["warmup_layers"], serve):
+        serve.main(argv + ["--prompt-len", str(cfg_s["warmup_prompt_len"]),
+                           "--gen", "2"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = drive_path("xlstm_serve", lambda: serve.main(
-        argv + ["--prompt-len", str(cfg_s["prompt_len"]),
-                "--gen", str(cfg_s["gen"])]), keep=True)
+    with cut_in_depth(cfg_s["arch"], cfg_s["n_layers"], serve):
+        res = drive_path("xlstm_serve", lambda: serve.main(
+            argv + ["--prompt-len", str(cfg_s["prompt_len"]),
+                    "--gen", str(cfg_s["gen"])]), keep=True)
     wall = time.perf_counter() - t0
     out, info = res["tokens"], res["info"]
     b, gen = cfg_s["batch"], cfg_s["gen"]
@@ -3689,7 +3785,7 @@ def xlstm_serve_phase() -> dict:
     forward_s = time.perf_counter() - t0
     dev = _max_err(logits, info["prefill_logits"], MLSTM_TOL[torch.bfloat16],
                    "xlstm no-cache forward vs prefill")
-    row = {"arch": cfg_s["arch"], "batch": b,
+    row = {"arch": cfg_s["arch"], "n_layers": cfg_s["n_layers"], "batch": b,
            "prompt_len": cfg_s["prompt_len"], "gen": gen, "dtype": "bfloat16",
            "prefill_s": info["t_prefill"],
            "decode_steps": info["decode_steps"], "decode_s": info["t_decode"],
@@ -3978,7 +4074,7 @@ def adopting_card_quantization(stats: list, card_fault=None):
 def zoo_parity_case(arch: str, label: str, change: dict,
                     card_fault=None, card_decode=None) -> dict:
     """One ZOO_PARITY_CASES entry: the arch at full width cut to 2 layers
-    in float32, the kernel path on the card against the plain path on the
+    (or the case's n_layers) in float32, the kernel path on the card against the plain path on the
     CPU in lockstep (``lockstep_parity``, weights drawn on the card), with
     the model's frontend inputs and M-RoPE positions; the int8 cache's
     CPU run adopts the card's quanta (``adopting_card_quantization``, with
@@ -3987,9 +4083,8 @@ def zoo_parity_case(arch: str, label: str, change: dict,
     from repro_torch import configs
     from repro_torch.kernels import ops
 
-    cfg = dataclasses.replace(configs.get_config(arch),
-                              n_layers=ZOO_PARITY["n_layers"],
-                              dtype="float32", **change)
+    cfg = dataclasses.replace(configs.get_config(arch), **{
+        "n_layers": ZOO_PARITY["n_layers"], "dtype": "float32", **change})
     b, p = ZOO_PARITY["batch"], ZOO_PARITY["prompt_len"]
     extra = {k: x for k, x in zoo_batch(
         cfg, b, p, src_len=ZOO_PARITY_SRC_LEN).items() if k != "tokens"}
@@ -4088,23 +4183,32 @@ def zoo_phase() -> dict:
 # Slice 13: B5's backward and the train path.
 # ---------------------------------------------------------------------------
 
-def _grad_err(got, want, tol: float, label: str) -> float:
+def _grad_err(got, want, tol: float, label: str,
+              names=("dq", "dk", "dv")) -> float:
     """Raise unless each of got's outputs is finite, of want's shape and
     dtype, and within tol of want's largest |value|; returns the largest
     deviation over that scale."""
     worst = 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        scale = float(w.double().abs().max())
-        dev = float((g.double() - w.double()).abs().max()) / max(scale,
-                                                                 1e-30)
-        if g.shape != w.shape or g.dtype != w.dtype or dev > tol or \
-                not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{label}/{name}: deviation {dev} of the "
-                                 f"largest |grad| {scale}, limit {tol}; "
-                                 f"shapes {tuple(g.shape)} "
-                                 f"{tuple(w.shape)}")
-        worst = max(worst, dev)
+    for name, g, w in zip(names, got, want, strict=True):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{label}/{name}: {g.dtype}, not {w.dtype}")
+        worst = max(worst, _rel_err(g, w, tol, f"{label}/{name}"))
     return worst
+
+
+def _rel_err(got, want, tol: float, label: str) -> float:
+    """Raise unless ``got`` is finite, of ``want``'s shape and within
+    ``tol`` of ``want``'s largest |value|; returns the deviation over that
+    scale."""
+    scale = float(want.double().abs().max())
+    dev = float((got.double() - want.double()).abs().max()) / max(scale,
+                                                                  1e-30)
+    if got.shape != want.shape or dev > tol or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: deviation {dev} of the largest "
+                             f"|value| {scale}, limit {tol}; shapes "
+                             f"{tuple(got.shape)} {tuple(want.shape)}")
+    return dev
 
 
 def _bwd_profiler_ms(kern, names) -> dict:
@@ -4210,11 +4314,211 @@ def attention_bwd_phase() -> dict:
     return rows
 
 
-def train_run() -> dict:
-    """The train path's run through the entry point a user calls."""
+def _chunk_live_mask(s_len: int, n_chunks: int, chunk: int) -> torch.Tensor:
+    """(n_chunks, chunk, chunk) bool: the (query, key) pairs of each chunk
+    that the scores kernel computes, key <= query < the chunk's length."""
+    t = torch.arange(chunk, device=DEVICE)
+    lens = (s_len - chunk * torch.arange(n_chunks, device=DEVICE)).clamp(
+        max=chunk)
+    return ((t[None, :, None] >= t[None, None, :])
+            & (t[None, :, None] < lens[:, None, None]))
+
+
+def mlstm_bwd_parts(label: str, args, tol: float, groups) -> dict:
+    """B7's four backward kernels, each against its plain version on the
+    same inputs (the plain outputs of the kernels before it): every
+    output, in each group of heads, within ``tol`` of its largest |value|
+    there; the scores kernel's W, dS and G on the live pairs only (the
+    launcher leaves the rest unwritten; no kernel reads it)."""
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    q, k, v, ig, fg, y, states, m, stats, dy = args
+    scores = mc.chunk_scores_plain(q, k, v, ig, fg, y, dy, states, m, stats)
+    aux, so, w, ds, g = scores
+    back = mc.chunk_states_bwd_plain(q, dy, aux, so, states)
+    grads = mc.chunk_grads_plain(q, k, v, dy, aux, w, ds, states, *back[:2])
+    live = _chunk_live_mask(q.shape[2], so.shape[2], mc.CHUNK)
+    got_scores = mc.mlstm_bwd_scores_cuda(q, k, v, ig, fg, y, dy, states, m,
+                                          stats)
+    calls = {
+        "scores": ((*got_scores[:2], *(torch.where(live, x, 0.0)
+                                       for x in got_scores[2:])), scores),
+        "states": (mc.mlstm_bwd_states_cuda(q, dy, aux, so, states), back),
+        "grads": (mc.mlstm_bwd_grads_cuda(q, k, v, dy, aux, w, ds, states,
+                                          *back[:2]), grads),
+        "gates": (mc.mlstm_bwd_gates_cuda(fg, aux, so, g, *grads[3:],
+                                          back[2]),
+                  mc.chunk_gates_bwd_plain(fg, aux, so, g, *grads[3:],
+                                           back[2]))}
+    torch.cuda.synchronize()
+    # aux is (N_AUX, B, H, S): its heads are dim 2, every other output's 1
+    return {name: [max(_rel_err(_head_slice(a, hs,
+                                            i == 0 and name == "scores"),
+                                _head_slice(b, hs,
+                                            i == 0 and name == "scores"),
+                                tol, f"{label}/{name}/{i}/{group}")
+                       for group, hs in groups.items())
+                   for i, (a, b) in enumerate(zip(got, want, strict=True))]
+            for name, (got, want) in calls.items()}
+
+
+def _head_slice(x: torch.Tensor, heads: slice, aux: bool = False):
+    """x's heads ``heads`` (dim 1, or dim 2 of the scores kernel's aux) as
+    float32."""
+    return (x[:, :, heads] if aux else x[:, heads]).float()
+
+
+def mlstm_saved_err(label: str, args, saved, tol: float) -> dict:
+    """The forward kernels' saved tensors against their plain versions:
+    the state at every chunk's start within ``tol`` of each one's largest
+    |value|, ell per position within ELL_TOL absolute, and the share of
+    positions where the normaliser's floor wins, which must lie within
+    MLSTM_FLOOR_SHARE (both branches of max(|N|, exp(-m)) in real shares);
+    sgn may differ only at near-ties of |N| and the floor (counted)."""
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    cs, ns, ms, stats = saved
+    want, _ = mc.chunk_states_plain(*args)
+    want_stats = mc.chunk_stats_plain(args[0], args[1], args[3], args[4],
+                                      (cs, ns, ms))
+    flips = int((stats[:, :, 1] != want_stats[:, :, 1]).sum())
+    if flips > 1e-3 * stats[:, :, 1].numel():
+        raise AssertionError(f"{label}: sgn differs at {flips} positions")
+    ell_err = float((stats[:, :, 0] - want_stats[:, :, 0]).abs().max())
+    if not ell_err <= ELL_TOL[args[0].dtype]:
+        raise AssertionError(f"{label}/ell: {ell_err} apart, limit "
+                             f"{ELL_TOL[args[0].dtype]}")
+    floor_share = float((stats[:, :, 1] == 0).float().mean())
+    lo, hi = MLSTM_FLOOR_SHARE
+    if not lo < floor_share < hi:
+        raise AssertionError(f"{label}: the floor wins at {floor_share} of "
+                             f"the positions, outside ({lo}, {hi})")
+    return {"C_c": _rel_err(cs.float(), want[0], tol, f"{label}/C_c"),
+            "n_c": _rel_err(ns, want[1], tol, f"{label}/n_c"),
+            "m_c": _rel_err(ms, want[2], tol, f"{label}/m_c"),
+            "ell_abs": ell_err,
+            "ell_absmax": float(stats[:, :, 0].abs().max()),
+            "sgn_flips": flips,
+            "floor_share": floor_share,
+            "floor_share_by_head": (stats[:, :, 1] == 0).float().mean(
+                (0, 2)).tolist()}
+
+
+def mlstm_bwd_phase() -> dict:
+    """Phase 6m: B7's backward kernels against their plain versions, on
+    the forward kernels' own saved tensors and a random dy.  k is scaled
+    by 1 / sqrt(Dh) on the even heads (phase 2a's recipe: the floor
+    exp(-m_t) wins at nearly every position) and left as drawn on the odd
+    ones (|N_t| wins at about two thirds of theirs), so that dN, dn and a
+    nonzero ell are all held to their plain versions; every check is made
+    on each group of heads apart, against that group's largest |value|."""
+    from repro_torch.kernels import mlstm_chunk as mc
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale
+                + shift)
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = torch.finfo(dtype).bits // 8
+        peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+        tol = BWD_TOL[dtype]
+        for case, (b, h, s_len, dh) in MLSTM_BWD_CASES.items():
+            if dtype == torch.float32 and case not in MLSTM_BWD_FLOAT32:
+                continue
+            q, k, v, dy = (draw(b, h, s_len, dh) for _ in range(4))
+            k[:, MLSTM_FLOOR_HEADS] /= dh ** 0.5
+            q, k, v, dy = (x.to(dtype) for x in (q, k, v, dy))
+            ig = draw(b, h, s_len, scale=0.5).to(dtype)
+            fg = draw(b, h, s_len, scale=0.5, shift=2.0).to(dtype)
+            y, _, _, m, cs, ns, ms, stats = ops.mlstm_chunk_op(
+                q, k, v, ig, fg, None, None, None, True)
+            label = f"mlstm_chunk_bwd/{case}/{dtype}"
+            saved = mlstm_saved_err(label, (q, k, v, ig, fg),
+                                    (cs, ns, ms, stats), tol)
+            args = (q, k, v, ig, fg, y, (cs, ns, ms), m, stats, dy)
+
+            def kern():
+                return ops.mlstm_chunk_bwd_op(q, k, v, ig, fg, y, cs, ns, ms,
+                                              m, stats, dy)
+
+            def plain():
+                return mc.mlstm_chunk_bwd_plain(*args)
+
+            first = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            err = max(_grad_err([x[:, hs] for x in first],
+                                [x[:, hs] for x in want], tol,
+                                f"{label}/{group}",
+                                names=("dq", "dk", "dv", "di", "df"))
+                      for group, hs in MLSTM_HEAD_GROUPS.items())
+            del want
+            repeats = bitwise_repeats(label, kern, first, BWD_REPEATS)
+            parts_err = mlstm_bwd_parts(label, args, tol, MLSTM_HEAD_GROUPS)
+            n_chunks = -(-s_len // mc.CHUNK)
+            pairs = sum(n * (n + 1) // 2 for n in (
+                min(mc.CHUNK, s_len - lo) for lo in range(0, s_len, mc.CHUNK)))
+            work = b * h * dh * (OPS_PER_POS_MLSTM_BWD * dh * s_len
+                                 + OPS_PER_PAIR_MLSTM_BWD * pairs)
+            # q, k, v, y, dy in and dq, dk, dv out; both gates in and out;
+            # the chunk states, the statistics and the final m in
+            nbytes = b * h * (elt * (8 * s_len * dh + 4 * s_len)
+                              + n_chunks * (elt * dh * dh + 4 * dh + 4)
+                              + 8 * s_len + 4)
+            bound_ms, bound_by = bound(work, nbytes, peak)
+            ms_kern = device_ms(kern, reps=BWD_REPS)
+            parts = _bwd_profiler_ms(kern, MLSTM_BWD_KERNELS)
+            row = {"name": "mlstm_chunk_bwd", "case": case,
+                   "dtype": str(dtype).split(".")[-1],
+                   "shape": [b, h, s_len, dh], "max_abs_err": err,
+                   "err_of": "largest |grad|", "tol": tol,
+                   "bitwise_repeats": repeats, "saved": saved,
+                   "kernel_errs": parts_err, "ms": ms_kern,
+                   "profiler_ms": sum(parts.values()), "kernels": parts,
+                   "wrapper_ms": event_ms(kern, reps=BWD_REPS),
+                   "plain_ms": event_ms(plain, reps=BWD_REPS),
+                   "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "tflop_per_s": work / ms_kern / 1e9,
+                   "share_of_bound": bound_ms / ms_kern, "gflop": work / 1e9,
+                   "mbytes": nbytes / 1e6}
+            emit({"phase": "mlstm_bwd", **row})
+            rows[case, dtype] = row
+            del q, k, v, dy, ig, fg, y, cs, ns, ms, stats, first, args
+            torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def cut_in_depth(arch: str, n_layers: int, launcher=None):
+    """``launcher``'s configs (launch.train's by default, or launch.serve's)
+    with ``arch``'s full config cut to ``n_layers`` (every width kept), for
+    the duration; no command-line flag."""
+    if launcher is None:
+        from repro_torch.launch import train as launcher
+
+    resolve = launcher.resolve_config
+
+    def cut(name: str, reduced: bool):
+        cfg = resolve(name, reduced)
+        return (dataclasses.replace(cfg, n_layers=n_layers)
+                if name == arch and not reduced else cfg)
+
+    launcher.resolve_config = cut
+    try:
+        yield
+    finally:
+        launcher.resolve_config = resolve
+
+
+def train_run(t: dict = TRAIN) -> dict:
+    """A train path's run through the entry point a user calls: ``t``'s
+    arch at full width (cut to ``t["n_layers"]`` where given)."""
     from repro_torch.launch import train
 
-    t = TRAIN
     argv = ["--services", t["arch"], "--no-reduced", "--clients",
             str(t["clients"]), "--batch", str(t["batch"]), "--seq",
             str(t["seq"]), "--local-steps", str(t["local_steps"]),
@@ -4222,23 +4526,26 @@ def train_run() -> dict:
             str(t["max_rounds"]), "--period-s", str(t["period_s"]),
             "--policy", t["policy"], "--intra-backend", t["intra_backend"],
             "--device", DEVICE]
+    cut = (cut_in_depth(t["arch"], t["n_layers"]) if "n_layers" in t
+           else contextlib.nullcontext())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = train.main(argv)
+    with cut:
+        res = train.main(argv)
     torch.cuda.synchronize()
     res["wall_s"] = time.perf_counter() - t0
     return res
 
 
-def train_parity() -> dict:
-    """One round of the reduced gemma3-1b (float32) on the card and on the
-    CPU from one parameter set and batch."""
+def train_parity(arch: str = TRAIN["arch"]) -> dict:
+    """One round of ``arch``'s reduced config (float32) on the card and on
+    the CPU from one parameter set and batch."""
     from repro_torch import configs
     from repro_torch.fl import server
     from repro_torch.models import registry
     from repro_torch.tree import leaves_with_names
 
-    cfg = configs.get_smoke_config(TRAIN["arch"])
+    cfg = configs.get_smoke_config(arch)
     if cfg.compute_dtype != torch.float32:
         raise AssertionError(f"{cfg.name}'s smoke config is not float32")
     model = registry.build_model(cfg)
@@ -4279,14 +4586,15 @@ def train_parity() -> dict:
     return row
 
 
-def cotrain_zoo() -> dict:
-    """A smoke-size co-trained episode of the zoo task on "pallas": its
-    durations equal "reference"'s and plain run_scan's."""
+def cotrain_zoo(arch: str = TRAIN_COTRAIN_SPEC["arch"]) -> dict:
+    """A smoke-size co-trained episode of the zoo task (``arch``'s smoke
+    config) on "pallas": its durations equal "reference"'s and plain
+    run_scan's."""
     from repro_torch.core import network
     from repro_torch.fl import cotrain, simulator
 
     net = network.NetworkConfig(**TRAIN_COTRAIN_NET)
-    spec = cotrain.TrainSpec(**TRAIN_COTRAIN_SPEC)
+    spec = cotrain.TrainSpec(**{**TRAIN_COTRAIN_SPEC, "arch": arch})
     runs = {}
     for backend in ("pallas", "reference"):
         cfg = simulator.SimConfig(**TRAIN_COTRAIN_SIM, intra_backend=backend)
@@ -4317,19 +4625,16 @@ def cotrain_zoo() -> dict:
 
 
 def grad_guards() -> dict:
-    """B6 and B7 have no backward: on CUDA inputs that require grad their
-    wrappers raise (naming ROADMAP) and launch nothing."""
+    """B6 has no backward (decode is never differentiated): on CUDA inputs
+    that require grad its wrapper raises (naming ROADMAP) and launches
+    nothing."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=DEVICE).manual_seed(19)
     q, k, v = _heads(gen, torch.bfloat16, (2, 4, 64), (2, 16, 1, 64),
                      (2, 16, 1, 64))
-    mq, mk, mv = _heads(gen, torch.bfloat16, *[(1, 2, 64, 64)] * 3)
-    i_gate, f_gate = _heads(gen, torch.bfloat16, (1, 2, 64), (1, 2, 64))
     calls = {"decode_attention": lambda: ops.attention_decode(
-                 q.requires_grad_(), k, v, 8),
-             "mlstm_chunk": lambda: ops.mlstm(mq, mk.requires_grad_(), mv,
-                                              i_gate, f_gate)}
+                 q.requires_grad_(), k, v, 8)}
     before = dict(ops.LAUNCHES)
     out = {}
     for name, call in calls.items():
@@ -4347,11 +4652,110 @@ def grad_guards() -> dict:
     return out
 
 
-def train_phase(bwd_rows: dict) -> dict:
-    """Phase 6t: the train path (counted), then its parity, the zoo's
-    co-trained episode (each counted on its own) and the guards.
-    ``bwd_rows`` are phase 6b's, whose profiler ms at the train shapes
-    give B5's backward ms a round."""
+def xlstm_train_phase(mlstm_bwd_rows: dict) -> dict:
+    """The xLSTM train path (counted): full-width xlstm-1.3b cut to
+    XLSTM_TRAIN["n_layers"] through launch.train.main; exactly
+    XLSTM_TRAIN_MLSTM_LAYERS x local steps x rounds launches of B7 and of
+    its backward, TRAIN_B1_PER_PERIOD of B1 a period, no other kernel;
+    finite losses; B7's backward ms a round from 6m's profiler ms at the
+    train shape, and the run's device allocations and allocation retries
+    (the caching allocator's growth, which the first round pays)."""
+    torch.cuda.empty_cache()
+    t = XLSTM_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()
+    res = drive_path("train_xlstm", lambda: train_run(t), keep=True)
+    after = torch.cuda.memory_stats()
+    allocator = {key: after.get(key, 0) - before.get(key, 0)
+                 for key in ("num_device_alloc", "num_alloc_retries")}
+    name = t["arch"]
+    rounds = res["rounds_done"][name]
+    per_round = XLSTM_TRAIN_MLSTM_LAYERS * t["local_steps"]
+    expected = {k: 0 for k in KERNELS}
+    expected.update(mlstm_chunk=per_round * rounds,
+                    mlstm_chunk_bwd=per_round * rounds,
+                    bisect_alloc=TRAIN_B1_PER_PERIOD * len(res["periods"]))
+    losses = res["services"][0]["losses"]
+    if rounds < 1 or PATH_LAUNCHES["train_xlstm"] != expected:
+        raise AssertionError(f"train xlstm: {rounds} rounds launched "
+                             f"{PATH_LAUNCHES['train_xlstm']}, expected "
+                             f"{expected}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train xlstm: losses {losses}")
+    round_ms = 1e3 * float(np.median(res["services"][0]["round_s"]))
+    last_ms = 1e3 * res["services"][0]["round_s"][-1]
+    bwd_ms = per_round * mlstm_bwd_rows[MLSTM_BWD_MAIN_CASE,
+                                        torch.bfloat16]["profiler_ms"]
+    row = {**t, "rounds": rounds, "losses": losses, "periods": res["periods"],
+           "peak_gb": (None if res["peak_bytes"] is None
+                       else res["peak_bytes"] / 1e9),
+           "ms_per_round": round_ms,
+           "round_ms": [1e3 * x for x in res["services"][0]["round_s"]],
+           "wall_s": res["wall_s"], "bwd_launches_per_round": per_round,
+           "last_round_ms": last_ms, "bwd_ms_per_round": bwd_ms,
+           "bwd_share_of_last_round": bwd_ms / last_ms,
+           "allocator": allocator,
+           "launches": PATH_LAUNCHES["train_xlstm"]}
+    emit({"phase": "train_xlstm", **row})
+    return row
+
+
+def train_cli() -> dict:
+    """launch.train.main with its own defaults (gemma-2b and xlstm-1.3b,
+    reduced, on the card) but TRAIN_CLI's periods; the launches checked
+    by train_phase."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    res = train.main(list(TRAIN_CLI))
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def check_train_cli(res: dict) -> dict:
+    """Exactly one B5 and one B5 backward launch a layer a local step a
+    round for the transformer service, one B7 and one B7 backward a mLSTM
+    layer likewise for the xLSTM one, no other kernel; finite losses."""
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    args = train.build_parser().parse_args(list(TRAIN_CLI))
+    expected = {k: 0 for k in KERNELS}
+    for svc in res["services"]:
+        cfg = train.resolve_config(svc["name"], args.reduced)
+        calls = args.local_steps * svc["rounds_done"]
+        if cfg.family == "ssm":
+            n_super, n_m = registry.build_model(cfg)._layout
+            keys, per = ("mlstm_chunk", "mlstm_chunk_bwd"), n_super * n_m
+        else:
+            keys, per = ("flash_attention", "flash_attention_bwd"), \
+                cfg.n_layers
+        for key in keys:
+            expected[key] += per * calls
+        if svc["rounds_done"] < 1 or not np.all(np.isfinite(svc["losses"])):
+            raise AssertionError(f"train cli: {svc['name']} trained "
+                                 f"{svc['rounds_done']} rounds, losses "
+                                 f"{svc['losses']}")
+    if PATH_LAUNCHES["train_cli"] != expected:
+        raise AssertionError(f"train cli launched {PATH_LAUNCHES['train_cli']}"
+                             f", expected {expected}")
+    row = {"argv": list(TRAIN_CLI), "wall_s": res["wall_s"],
+           "services": [{k: svc[k] for k in ("name", "rounds_done")}
+                        | {"final_loss": svc["losses"][-1]}
+                        for svc in res["services"]],
+           "launches": PATH_LAUNCHES["train_cli"]}
+    emit({"phase": "train_cli", **row})
+    return row
+
+
+def train_phase(bwd_rows: dict, mlstm_bwd_rows: dict) -> dict:
+    """Phase 6t: the train path (counted), then the xLSTM train path, the
+    float32 parity of both families, launch.train's default CLI and the
+    zoo's co-trained episodes of both (each counted on its own), and the
+    guard.  ``bwd_rows`` are phase 6b's, whose profiler ms at the train
+    shapes give B5's backward ms a round; ``mlstm_bwd_rows`` phase 6m's,
+    B7's backward's."""
     from repro_torch import configs
 
     torch.cuda.empty_cache()
@@ -4389,9 +4793,19 @@ def train_phase(bwd_rows: dict) -> dict:
     emit({"phase": "train", **row})
     del res
     torch.cuda.empty_cache()
+    xlstm_arch = XLSTM_TRAIN["arch"]
     return {"train": row,
+            "train_xlstm": xlstm_train_phase(mlstm_bwd_rows),
             "parity": drive_path("train_parity", train_parity, keep=True),
+            "parity_xlstm": drive_path(
+                "train_parity_xlstm", lambda: train_parity(xlstm_arch),
+                keep=True),
+            "cli": check_train_cli(drive_path("train_cli", train_cli,
+                                              keep=True)),
             "cotrain_zoo": drive_path("cotrain_zoo", cotrain_zoo, keep=True),
+            "cotrain_zoo_xlstm": drive_path(
+                "cotrain_zoo_xlstm", lambda: cotrain_zoo(xlstm_arch),
+                keep=True),
             "guards": grad_guards()}
 
 
@@ -4438,7 +4852,7 @@ def main() -> int:
     mlstm = mlstm_phase()
     clock["mlstm_kernel"] = time.perf_counter()
     xlstm_serve_phase()
-    m_layers = _mlstm_layers(XLSTM_SERVE["arch"])
+    m_layers = _mlstm_layers(XLSTM_SERVE["arch"], XLSTM_SERVE["n_layers"])
     for path in ("xlstm_serve", "xlstm_forward"):
         expected = {name: 0 for name in KERNELS}
         expected["mlstm_chunk"] = m_layers
@@ -4479,7 +4893,9 @@ def main() -> int:
     # --- slice 13: B5's backward, then training ----------------------------
     attention_bwd = attention_bwd_phase()
     clock["attention_bwd"] = time.perf_counter()
-    train_phase(attention_bwd)
+    mlstm_bwd = mlstm_bwd_phase()
+    clock["mlstm_bwd"] = time.perf_counter()
+    train_phase(attention_bwd, mlstm_bwd)
     clock["train"] = time.perf_counter()
 
     paths = {"xlstm_serve": PATH_LAUNCHES["xlstm_serve"],
@@ -4488,7 +4904,9 @@ def main() -> int:
              **{f"zoo:{arch}": PATH_LAUNCHES[f"zoo:{arch}"]
                 for arch in ZOO_ARCHS},
              **{path: PATH_LAUNCHES[path]
-                for path in ("train", "train_parity", "cotrain_zoo")},
+                for path in ("train", "train_xlstm", "train_parity",
+                             "train_parity_xlstm", "train_cli", "cotrain_zoo",
+                             "cotrain_zoo_xlstm")},
              "slice1": drive_path("slice1", path_slice1),
              "selfish": drive_path("selfish", path_selfish),
              "run_batch": drive_path("run_batch", batch_pair)}
@@ -4546,10 +4964,14 @@ def main() -> int:
                                         for row in attention_bwd.values())
     rows["mlstm_chunk"] = mlstm["serve", torch.bfloat16]
     errors["mlstm_chunk"] = max(row["max_abs_err"] for row in mlstm.values())
+    rows["mlstm_chunk_bwd"] = mlstm_bwd[MLSTM_BWD_MAIN_CASE, torch.bfloat16]
+    errors["mlstm_chunk_bwd"] = max(row["max_abs_err"]
+                                    for row in mlstm_bwd.values())
     print(smi, flush=True)
     # B7 is one row: one call (one launch count) runs its two bf16 kernels,
-    # listed under "parts" with their own times; so is B5's backward (its
-    # max_abs_err is of the largest |grad|).
+    # listed under "parts" with their own times; so are B5's and B7's
+    # backwards (their max_abs_err is of the largest |grad|; parts the
+    # profiler ms of each kernel).
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{name}.cu", "replaces": where,

@@ -67,6 +67,13 @@
 // (about 2^-9 relative each); every sum is float32.  Scratch: 2 Dh^2 bytes
 // per chunk and (batch, head), 256 MB at 4 x 4 heads of 2048 x 1024.
 //
+// For the backward (mlstm_chunk_bwd.cu), on request: every chunk of 256
+// positions' starting state (the bf16 path's scratch; the float32 kernel
+// writes its C slice, n and m at every fourth chunk's start), and per
+// position ell_t = m_t + log(den_t), the normaliser with its stabilizer
+// taken out, and sgn_t, the sign of N_t where |N_t| > exp(-m_t) and 0
+// where the floor wins (8 bytes a position, (B, H, 2, S) float32).
+//
 // float32 (the parity path), a first, simple kernel on the FMA units:
 // - The state does not fit in a block: C is 4 MB per (batch, head) at Dh =
 //   1024.  It is split by value columns: y[:, e] and C[:, e] need only
@@ -100,6 +107,7 @@
 namespace repro {
 
 constexpr int kL = 64;             // chunk length
+constexpr int kSaveEvery = 256 / kL;  // chunks between saved states
 constexpr int kE = 32;             // value columns per block
 constexpr int kDt = 64;            // head-dim tile of the contraction pass
 constexpr int kTs = kDt + 4;       // row stride of the q/k tiles (floats)
@@ -125,8 +133,10 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ fg, float* __restrict__ y,
                    const float* __restrict__ c0, const float* __restrict__ n0,
                    const float* __restrict__ m0, float* __restrict__ c1,
-                   float* __restrict__ n1, float* __restrict__ m1, int h,
-                   int s_len, int dh, Strides st, float sqrt_dh) {
+                   float* __restrict__ n1, float* __restrict__ m1,
+                   float* __restrict__ cs, float* __restrict__ ns_out,
+                   float* __restrict__ ms_out, float* __restrict__ stats,
+                   int h, int s_len, int dh, Strides st, float sqrt_dh) {
   extern __shared__ __align__(16) float smem[];
   float* Cs = smem;                 // [dh][kE]: this block's columns of C
   float* ns = Cs + dh * kE;         // [dh]
@@ -169,10 +179,20 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int cr = ty * kCr, ce = 2 * tx;
 
   const int n_chunks = (s_len + kL - 1) / kL;
+  const int n_saved = (n_chunks + kSaveEvery - 1) / kSaveEvery;
   for (int ci = 0; ci < n_chunks; ++ci) {
     const int t0 = ci * kL;
     const int len = min(kL, s_len - t0);
     __syncthreads();  // the previous chunk's readers are done
+    if (cs && ci % kSaveEvery == 0) {  // the state at a saved chunk's start
+      const long long sc = (long long)bh * n_saved + ci / kSaveEvery;
+      for (int idx = tid; idx < dh * kE; idx += kThreads)
+        cs[(sc * dh + idx / kE) * dh + e0 + idx % kE] = Cs[idx];
+      if (blockIdx.x == 0) {
+        for (int d = tid; d < dh; d += kThreads) ns_out[sc * dh + d] = ns[d];
+        if (tid == 0) ms_out[sc] = m_prev;
+      }
+    }
 
     // --- the chunk's gates and v slice ---------------------------------
     if (tid < kL) {
@@ -360,6 +380,12 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
       nsum[tid] = qacc * gin[tid] + acc;  // n_inter + n_intra
     }
     __syncthreads();
+    if (stats && blockIdx.x == 0 && tid < len) {
+      const float floor_t = expf(-mt[tid]), nt = nsum[tid];
+      const long long at = (long long)bh * 2 * s_len + t0 + tid;
+      stats[at] = mt[tid] + ::logf(fmaxf(fabsf(nt), floor_t));
+      stats[at + s_len] = fabsf(nt) > floor_t ? copysignf(1.f, nt) : 0.f;
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int t = ty + 16 * r;
@@ -387,9 +413,9 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 int launch(const void* q, const void* k, const void* v, const void* ig,
            const void* fg, void* y, const float* c0, const float* n0,
-           const float* m0, float* c1, float* n1, float* m1, int b, int h,
-           int s, int dh, const Strides& st, float sqrt_dh,
-           cudaStream_t stream) {
+           const float* m0, float* c1, float* n1, float* m1, float* cs,
+           float* ns, float* ms, float* stats, int b, int h, int s, int dh,
+           const Strides& st, float sqrt_dh, cudaStream_t stream) {
   const int bytes = smem_floats(dh) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       mlstm_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -399,7 +425,7 @@ int launch(const void* q, const void* k, const void* v, const void* ig,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(ig),
       static_cast<const float*>(fg), static_cast<float*>(y), c0, n0, m0, c1,
-      n1, m1, h, s, dh, st, sqrt_dh);
+      n1, m1, cs, ns, ms, stats, h, s, dh, st, sqrt_dh);
   return (int)cudaGetLastError();
 }
 
@@ -705,6 +731,7 @@ mlstm_outputs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ fg, const bf16* __restrict__ cs,
                      const float* __restrict__ ns,
                      const float* __restrict__ ms, bf16* __restrict__ y,
+                     float* __restrict__ stats,
                      int h, int s_len, int dh, int passes, Rows qs, Rows ks,
                      Rows vs, Rows is, Rows fs, Rows ys, float inv_sqrt) {
   constexpr int kStage = kTileBytes * (1 + kTilesPerChunk);  // Q + 4 K tiles
@@ -908,6 +935,18 @@ mlstm_outputs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float coef_a = g_s[ta] * inv_sqrt, coef_b = g_s[tb] * inv_sqrt;
   const float den_a = fmaxf(fabsf(coef_a * qn_s[ra] + ni_a), expf(-mta));
   const float den_b = fmaxf(fabsf(coef_b * qn_s[rb] + ni_b), expf(-mtb));
+  if (stats && eg == 0 && tig == 0) {  // ell and sgn of rows a and b
+    const float na = coef_a * qn_s[ra] + ni_a, nb = coef_b * qn_s[rb] + ni_b;
+    const long long at = (long long)bh * 2 * s_len + p0;
+    if (p0 + ra < s_len) {
+      stats[at + ra] = mta + logf(den_a);
+      stats[at + s_len + ra] = fabsf(na) > expf(-mta) ? copysignf(1.f, na) : 0.f;
+    }
+    if (p0 + rb < s_len) {
+      stats[at + rb] = mtb + logf(den_b);
+      stats[at + s_len + rb] = fabsf(nb) > expf(-mtb) ? copysignf(1.f, nb) : 0.f;
+    }
+  }
 
   // --- per pass: Y = Q C_c, Y *= g / sqrt(Dh), Y += W V, y = Y / den ------
   for (int pass = 0; pass < passes; ++pass) {
@@ -1019,9 +1058,10 @@ int launch_states(const void* k, const void* v, const void* ig,
 template <int NE>
 int launch_outputs(const void* q, const void* k, const void* v,
                    const void* ig, const void* fg, const void* cs,
-                   const float* ns, const float* ms, void* y, int b, int h,
-                   int s, int dh, Rows qs, Rows ks, Rows vs, Rows is, Rows fs,
-                   Rows ys, float inv_sqrt, cudaStream_t stream) {
+                   const float* ns, const float* ms, void* y, float* stats,
+                   int b, int h, int s, int dh, Rows qs, Rows ks, Rows vs,
+                   Rows is, Rows fs, Rows ys, float inv_sqrt,
+                   cudaStream_t stream) {
   // Up to 4 passes of 64 NE columns per block: S once for all of them.
   const int n_et = dh / (kT * NE);
   const int passes = n_et % 4 == 0 ? 4 : n_et % 2 == 0 ? 2 : 1;
@@ -1035,7 +1075,7 @@ int launch_outputs(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(ig),
       static_cast<const bf16*>(fg), static_cast<const bf16*>(cs), ns, ms,
-      static_cast<bf16*>(y), h, s, dh, passes, qs, ks, vs, is, fs, ys,
+      static_cast<bf16*>(y), stats, h, s, dh, passes, qs, ks, vs, is, fs, ys,
       inv_sqrt);
   return (int)cudaGetLastError();
 }
@@ -1053,10 +1093,15 @@ inline bool bad_shape(int b, int h, int s, int dh) {
 // position) of q, k, v, i, f and y; the head dim is contiguous.  c0, n0,
 // m0 may all be null (the zero state, m = -1e30); c1, n1 and m1 must not
 // alias them (every block reads n0 and m0 at its start; one writes n1, m1).
+// cs (B, H, n_chunks, dh, dh), ns (B, H, n_chunks, dh), ms (B, H,
+// n_chunks) and stats (B, H, 2, s), float32 contiguous: the state at every
+// chunk of 256's start and ell, sgn per position, for the backward; all
+// null to write none.
 extern "C" int mlstm_chunk_launch(
     const void* q, const void* k, const void* v, const void* ig,
     const void* fg, void* y, const void* c0, const void* n0, const void* m0,
-    void* c1, void* n1, void* m1, int b, int h, int s, int dh,
+    void* c1, void* n1, void* m1, void* cs_save, void* ns_save,
+    void* ms_save, void* stats, int b, int h, int s, int dh,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long i_sb, long long i_sh, long long i_ss,
@@ -1074,8 +1119,12 @@ extern "C" int mlstm_chunk_launch(
   float* co = static_cast<float*>(c1);
   float* no = static_cast<float*>(n1);
   float* mo = static_cast<float*>(m1);
-  return repro::launch(q, k, v, ig, fg, y, cs, ns, ms, co, no, mo, b, h, s,
-                       dh, st, sqrt_dh, static_cast<cudaStream_t>(stream));
+  return repro::launch(q, k, v, ig, fg, y, cs, ns, ms, co, no, mo,
+                       static_cast<float*>(cs_save),
+                       static_cast<float*>(ns_save),
+                       static_cast<float*>(ms_save), static_cast<float*>(stats),
+                       b, h, s, dh, st, sqrt_dh,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 k, v and gates, strides in elements ((batch, head, position);
@@ -1111,11 +1160,12 @@ extern "C" int mlstm_states_launch(
 }
 
 // bfloat16 q, k, v, gates and y (strides as above), and the chunk states
-// mlstm_states_launch wrote; inv_sqrt = 1 / sqrt(dh) in float32.
+// mlstm_states_launch wrote; inv_sqrt = 1 / sqrt(dh) in float32.  stats
+// (B, H, 2, s) float32, ell and sgn per position for the backward, or null.
 extern "C" int mlstm_outputs_launch(
     const void* q, const void* k, const void* v, const void* ig,
     const void* fg, const void* cs, const void* ns, const void* ms, void* y,
-    int b, int h, int s, int dh, long long q_sb, long long q_sh,
+    void* stats, int b, int h, int s, int dh, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long i_sb,
     long long i_sh, long long i_ss, long long f_sb, long long f_sh,
@@ -1128,6 +1178,7 @@ extern "C" int mlstm_outputs_launch(
   auto launch = (dh / repro::tc::kT) % 2 ? repro::tc::launch_outputs<1>
                                          : repro::tc::launch_outputs<2>;
   return launch(q, k, v, ig, fg, cs, static_cast<const float*>(ns),
-                static_cast<const float*>(ms), y, b, h, s, dh, qs, ks, vs, is,
-                fs, ys, inv_sqrt, static_cast<cudaStream_t>(stream));
+                static_cast<const float*>(ms), y, static_cast<float*>(stats),
+                b, h, s, dh, qs, ks, vs, is, fs, ys, inv_sqrt,
+                static_cast<cudaStream_t>(stream));
 }

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
            "flash_attention", "flash_attention_bwd", "decode_attention",
-           "mlstm_chunk")
+           "mlstm_chunk", "mlstm_chunk_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS = {"decode_attention": ("-split-compile=0",),

@@ -21,11 +21,15 @@ with ``setup_context``; the custom op's own ``register_autograd`` shares
 its context and backward) whose backward is the ``flash_attention_bwd``
 op.  The forward op returns the output and each row's log-sum-exp L,
 which it saves (not differentiable) for the backward op, so the backward
-does not recompute it; ``attention`` returns the output alone.  Both ops
-fold a vmapped dim into the batch (``register_vmap``), so
-``vmap(grad(loss))`` over clients and services launches each kernel once
-a layer.  B6 and B7 have no backward yet: on a CUDA tensor that requires
-grad their wrappers raise (ROADMAP).
+does not recompute it; ``attention`` returns the output alone.  B7 does
+the same through ``MLSTMChunk``: its forward op, asked to ``save``,
+returns the state at every chunk's start and the per-position
+statistics of the normaliser for its backward op
+(``repro_torch::mlstm_chunk_bwd``).  Every op folds a vmapped dim into
+the batch (``register_vmap``), so ``vmap(grad(loss))`` over clients and
+services launches each kernel once a layer.  B6 has no backward (decode
+is never differentiated): on a CUDA tensor that requires grad its
+wrapper raises (ROADMAP).
 """
 from __future__ import annotations
 
@@ -44,11 +48,16 @@ from repro_torch.kernels.market_clear import (market_clear_cuda,
                                               market_clear_plain,
                                               mbdf_demand_cuda,
                                               mbdf_demand_plain)
-from repro_torch.kernels.mlstm_chunk import mlstm_chunk_cuda, mlstm_chunk_plain
+from repro_torch.kernels.mlstm_chunk import CHUNK as MLSTM_CHUNK
+from repro_torch.kernels.mlstm_chunk import (mlstm_chunk_bwd_cuda,
+                                             mlstm_chunk_bwd_plain,
+                                             mlstm_chunk_cuda,
+                                             mlstm_chunk_fwd_plain,
+                                             mlstm_chunk_plain)
 
 KERNEL_NAMES = ("bisect_alloc", "dual_demand", "market_clear", "mbdf_demand",
                 "flash_attention", "flash_attention_bwd", "decode_attention",
-                "mlstm_chunk")
+                "mlstm_chunk", "mlstm_chunk_bwd")
 MAX_K = 1024  # clients per service the kernels hold in registers (32 x 32)
 HEAD_DIMS = (32, 64, 128, 256)     # head dims the attention kernels compile
 DECODE_GROUPS = tuple(range(1, 9))  # query heads per KV head of decode
@@ -59,7 +68,9 @@ MLSTM_MAX_HEAD_DIM = 1024   # head-dim tile, up to what its C slice fits
 # Launches per kernel; "mlstm_chunk" counts calls, each of which launches
 # the states and the outputs kernel in bfloat16 (one kernel in float32);
 # "flash_attention_bwd" counts calls, each of which launches Delta, dk and
-# dv, then dq in bfloat16 (dq, then dk and dv in float32).
+# dv, then dq in bfloat16 (dq, then dk and dv in float32);
+# "mlstm_chunk_bwd" counts calls of its four kernels (scores, states,
+# grads, gates).
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -450,7 +461,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# B6 and B7 as custom ops (no backward yet).
+# B6 (no backward) and B7 and its backward as custom ops.
 # ---------------------------------------------------------------------------
 
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
@@ -529,22 +540,33 @@ def _check_mlstm(tensors: dict) -> bool:
 @torch.library.custom_op("repro_torch::mlstm_chunk", mutates_args=())
 def mlstm_chunk_op(q: Tensor, k: Tensor, v: Tensor, i_gate: Tensor,
                    f_gate: Tensor, c0: Tensor | None, n0: Tensor | None,
-                   m0: Tensor | None
-                   ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+                   m0: Tensor | None, save: bool = False
+                   ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
+                              Tensor, Tensor]:
     """B7 on real tensors -> (y (B, H, S, Dh) in q's dtype, a view of a
-    (B, S, H, Dh) buffer; C, n, m float32): the kernels for CUDA tensors,
-    the plain version for CPU ones.  (c0, n0, m0) is the initial state, or
-    three Nones."""
+    (B, S, H, Dh) buffer; C, n, m float32; then what the backward reads:
+    C_c (B, H, n_chunks, Dh, Dh) in q's dtype, n_c (B, H, n_chunks, Dh),
+    m_c (B, H, n_chunks), the state at every ``CHUNK``'s start, and the
+    per-position statistics (B, H, 2, S), all float32; empty (0,) tensors
+    unless ``save``): the kernels for CUDA tensors, the plain version for
+    CPU ones.  (c0, n0, m0) is the initial state, or three Nones."""
     state = None if c0 is None else (c0, n0, m0)
     if _kernel_device("mlstm", q):
         if q.dtype == torch.bfloat16:  # the tensor-core kernels' cp.async
             _check_rows_aligned("mlstm", {"q": q, "k": k, "v": v})
-        y, (c, n, m) = mlstm_chunk_cuda(q, k, v, i_gate, f_gate, state)
+        out = mlstm_chunk_cuda(q, k, v, i_gate, f_gate, state, save=save)
         LAUNCHES["mlstm_chunk"] += 1
-        return y, c, n, m
-    y, (c, n, m) = mlstm_chunk_plain(q, k, v, i_gate, f_gate, state)
-    return (_mlstm_y(q).copy_(y), c.contiguous(), n.contiguous(),
-            m.contiguous())
+    elif save:
+        y, final, (cs, ns, ms), stats = mlstm_chunk_fwd_plain(
+            q, k, v, i_gate, f_gate, state)
+        out = (_mlstm_y(q).copy_(y), final, (cs.to(q.dtype), ns, ms), stats)
+    else:
+        y, final = mlstm_chunk_plain(q, k, v, i_gate, f_gate, state)
+        out = (_mlstm_y(q).copy_(y), final)
+    y, (c, n, m) = out[:2]
+    saved = (*out[2], out[3]) if save else tuple(
+        q.new_empty((0,), dtype=torch.float32) for _ in range(4))
+    return (y, *(x.contiguous() for x in (c, n, m)), *saved)
 
 
 def _mlstm_y(q: Tensor) -> Tensor:
@@ -552,12 +574,163 @@ def _mlstm_y(q: Tensor) -> Tensor:
     return q.new_empty((b, s, h, dh)).transpose(1, 2)
 
 
+def _mlstm_saved_shapes(q: Tensor) -> tuple:
+    b, h, s, dh = q.shape
+    nc = -(-s // MLSTM_CHUNK)
+    return ((b, h, nc, dh, dh), (b, h, nc, dh), (b, h, nc), (b, h, 2, s))
+
+
 @mlstm_chunk_op.register_fake
-def _(q, k, v, i_gate, f_gate, c0, n0, m0):
+def _(q, k, v, i_gate, f_gate, c0, n0, m0, save=False):
     b, h, _, dh = q.shape
     f32 = dict(dtype=torch.float32)
+    if save:
+        shapes = _mlstm_saved_shapes(q)
+        saved = (q.new_empty(shapes[0]),
+                 *(q.new_empty(x, **f32) for x in shapes[1:]))
+    else:
+        saved = tuple(q.new_empty((0,), **f32) for _ in range(4))
     return (_mlstm_y(q), q.new_empty((b, h, dh, dh), **f32),
-            q.new_empty((b, h, dh), **f32), q.new_empty((b, h), **f32))
+            q.new_empty((b, h, dh), **f32), q.new_empty((b, h), **f32),
+            *saved)
+
+
+@torch.library.custom_op("repro_torch::mlstm_chunk_bwd", mutates_args=())
+def mlstm_chunk_bwd_op(q: Tensor, k: Tensor, v: Tensor, i_gate: Tensor,
+                       f_gate: Tensor, y: Tensor, cs: Tensor, ns: Tensor,
+                       ms: Tensor, m_last: Tensor, stats: Tensor, dy: Tensor
+                       ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """B7's backward on real tensors -> (dq, dk, dv (B, H, S, Dh) in q's
+    dtype, di, df (B, H, S) in the gates' dtype), all contiguous: the
+    kernels for CUDA tensors, the plain version for CPU ones.  ``y``,
+    (cs, ns, ms), ``m_last`` (the final m) and ``stats`` are the forward
+    op's outputs, ``dy`` y's gradient."""
+    if dy.stride(-1) != 1 or _broadcast(dy):  # autograd picks dy's layout
+        dy = dy.contiguous()
+    args = (q, k, v, i_gate, f_gate, y, (cs, ns, ms), m_last, stats, dy)
+    if _kernel_device("mlstm backward", q):
+        _check_mlstm_saved(q, {"i_gate": i_gate, "f_gate": f_gate, "y": y,
+                               "dy": dy}, (cs, ns, ms, m_last, stats))
+        grads = mlstm_chunk_bwd_cuda(*args)
+        LAUNCHES["mlstm_chunk_bwd"] += 1
+        return grads
+    return tuple(g.contiguous() for g in mlstm_chunk_bwd_plain(*args))
+
+
+def _check_mlstm_saved(q: Tensor, tensors: dict, saved: tuple) -> None:
+    """The backward kernels read what the forward saved: its shapes and
+    dtypes, on q's device, the inputs and y, dy of q's (gates') shape."""
+    b, h, s, _ = q.shape
+    c_c, n_c, m_c, stats = _mlstm_saved_shapes(q)
+    shapes = (c_c, n_c, m_c, (b, h), stats)
+    dtypes = (q.dtype,) + (torch.float32,) * 4
+    for x, shape, dtype in zip(saved, shapes, dtypes):
+        if tuple(x.shape) != shape or x.dtype != dtype or \
+                x.device != q.device:
+            raise ValueError(f"mlstm backward: saved tensors must be "
+                             f"{shapes} of {dtypes} on {q.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} {x.device}")
+    for key, x in tensors.items():
+        want = (b, h, s) if key.endswith("gate") else tuple(q.shape)
+        if tuple(x.shape) != want or x.dtype != q.dtype or \
+                x.device != q.device or (x.ndim == 4 and x.stride(-1) != 1):
+            raise ValueError(f"mlstm backward: {key} must be {want} "
+                             f"{q.dtype} on {q.device} with a contiguous "
+                             f"head dim")
+
+
+@mlstm_chunk_bwd_op.register_fake
+def _(q, k, v, i_gate, f_gate, y, cs, ns, ms, m_last, stats, dy):
+    return (*(q.new_empty(q.shape) for _ in range(3)),
+            *(i_gate.new_empty(i_gate.shape) for _ in range(2)))
+
+
+class MLSTMChunkBackward(torch.autograd.Function):
+    """B7's backward op as autograd sees it: a second derivative raises,
+    as B5's does."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(*args):
+        return mlstm_chunk_bwd_op(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("mlstm: no second derivative through B7's "
+                           "backward (ROADMAP Queue B, B7)")
+
+
+class MLSTMChunk(torch.autograd.Function):
+    """B7 as autograd sees it, under plain autograd and ``torch.func``
+    alike: the forward op with ``save`` (its chunk states and statistics
+    saved, not differentiable), the backward op; ``vmap`` runs both
+    through their folding rules.  Only y is differentiated: a gradient for
+    the returned state (C, n, m) raises."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, i_gate, f_gate, c0, n0, m0):
+        return mlstm_chunk_op(q, k, v, i_gate, f_gate, c0, n0, m0, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, i_gate, f_gate = inputs[:5]
+        y, _, _, m, cs, ns, ms, stats = output
+        ctx.mark_non_differentiable(cs, ns, ms, stats)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, i_gate, f_gate, y, cs, ns, ms, m,
+                              stats)
+
+    @staticmethod
+    def backward(ctx, dy, dc, dn, dm, *_saved):
+        if dc is not None or dn is not None or dm is not None:
+            raise RuntimeError("mlstm: no gradient through the returned "
+                               "state (C, n, m); only y is differentiated "
+                               "(ROADMAP Queue B, B7)")
+        if dy is None:
+            return (None,) * 8
+        grads = MLSTMChunkBackward.apply(*ctx.saved_tensors, dy)
+        return (*grads, None, None, None)
+
+
+def _mlstm_vmap(info, in_dims, q, k, v, i_gate, f_gate, c0, n0, m0,
+                save=False):
+    args = _fold_batch(info, in_dims[:5], (q, k, v, i_gate, f_gate))
+    state = (None,) * 3
+    if c0 is not None:
+        state = tuple(x.contiguous() for x in _fold_batch(
+            info, in_dims[5:8], (c0, n0, m0)))
+    out = mlstm_chunk_op(*args, *state, save)
+    return tuple(_unfold(x, info.batch_size) for x in out), (0,) * 8
+
+
+def _mlstm_bwd_vmap(info, in_dims, *args):
+    grads = mlstm_chunk_bwd_op(*_fold_batch(info, in_dims, args))
+    return tuple(_unfold(g, info.batch_size) for g in grads), (0,) * 5
+
+
+mlstm_chunk_op.register_vmap(_mlstm_vmap)
+mlstm_chunk_bwd_op.register_vmap(_mlstm_bwd_vmap)
+
+
+def _needs_grad(tensors) -> bool:
+    """Whether a call may be differentiated: grad mode on and an input that
+    requires grad, or a ``torch.func.grad`` (or ``vjp``) level around the
+    call (under ``grad(vmap(f))`` the tensors ``f`` sees do not say they
+    require grad).  ``vmap`` alone does not count."""
+    if not torch.is_grad_enabled():
+        return False
+    if any(x.requires_grad for x in tensors):
+        return True
+    stack = torch._C._functorch.get_interpreter_stack() or ()
+    return any(level.key() == torch._C._functorch.TransformType.Grad
+               for level in stack)
 
 
 def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -566,10 +739,11 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (batch, head, position) strides and a contiguous head dim, gates
     (B, H, S) with any strides, all of one dtype; ``state`` None or
     float32 contiguous (C (B, H, Dh, Dh), n (B, H, Dh), m (B, H)) ->
-    (y (B, H, S, Dh) in q's dtype, (C, n, m) float32).  A CPU tensor
-    takes the plain version directly (not the op), so xLSTM trains on the
-    CPU through autograd of the plain ops; on the card, inputs that
-    require grad raise (B7's backward is ROADMAP's next item)."""
+    (y (B, H, S, Dh) in q's dtype, (C, n, m) float32).  Differentiable in
+    y (B7's backward kernels on the card, their plain versions on the CPU,
+    through ``MLSTMChunk``), under ``torch.func`` too; a state that
+    requires grad, and a gradient for the returned state, raise.  A CPU
+    call that is not differentiated takes the plain version directly."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"mlstm: need q, k, v of one (B, H, S, Dh) shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -590,12 +764,17 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"mlstm: state must be contiguous float32 "
                              f"(C, n, m) of shapes {shapes} on {q.device}")
     tensors = {"q": q, "k": k, "v": v, "i_gate": i_gate, "f_gate": f_gate}
-    if not _check_mlstm(tensors):
+    on_card = _check_mlstm(tensors)
+    grad = _needs_grad(tensors.values())
+    if grad and state is not None and any(x.requires_grad for x in state):
+        raise RuntimeError("mlstm: no gradient to the initial state (C, n, "
+                           "m); pass it detached (ROADMAP Queue B, B7)")
+    if grad:
+        y, c, n, m = MLSTMChunk.apply(q, k, v, i_gate, f_gate,
+                                      *(state or (None, None, None)))[:4]
+        return y, (c, n, m)
+    if not on_card:
         return mlstm_chunk_plain(q, k, v, i_gate, f_gate, state)
-    _refuse_grad("mlstm", "B7's backward kernels and xLSTM training on the "
-                 "card are ROADMAP Queue A item 13b-ii",
-                 {**tensors, **({} if state is None else
-                                dict(zip("Cnm", state)))})
     y, c, n, m = mlstm_chunk_op(q, k, v, i_gate, f_gate,
-                                *(state or (None, None, None)))
+                                *(state or (None, None, None)), False)[:4]
     return y, (c, n, m)

@@ -12,14 +12,14 @@ compression (priced into s^UT as well) and step-atomic checkpoints.
 
 A round is ``fl.server.make_fl_round_step``: ``torch.func.vmap`` over the
 clients of ``grad_and_value(model.loss)``.  On the card the attention of
-every transformer layer runs B5 forward and its two backward kernels,
-once a layer a local step with the clients folded into one launch; the
-service set and the allocations live on the card too, so ``--intra-backend
-pallas`` / ``megakernel`` launch B1-B4 there.  xLSTM trains on the CPU
-only (``--device cpu``): B7 has no backward kernel yet and raises under
-grad on the card (ROADMAP).  ``cfg.remat`` (``jax.checkpoint`` in the
-JAX package) is not ported: ``torch.utils.checkpoint`` does not compose
-with ``torch.func``.
+every transformer layer runs B5 forward and its backward kernels, and
+every mLSTM layer of xLSTM B7 forward and its backward kernels, once a
+layer a local step with the clients folded into one launch (the sLSTM is
+PyTorch ops, as in the JAX model); the service set and the allocations
+live on the card too, so ``--intra-backend pallas`` / ``megakernel``
+launch B1-B4 there.  ``cfg.remat`` (``jax.checkpoint`` in the JAX
+package) is not ported: ``torch.utils.checkpoint`` does not compose with
+``torch.func``.
 
 Two additions to the JAX driver's flags and data, both for the full
 configs: ``--period-s`` (default the paper's T = 20 s) and a synthetic

@@ -323,7 +323,11 @@ def slstm_step(p: Params, xt: torch.Tensor, state, cfg: ModelConfig,
     z, i_raw, f_raw, o = torch.split(pre.float(), dh, dim=-1)
     z = torch.tanh(z)
     o = torch.sigmoid(o)
-    logf = F.logsigmoid(f_raw)
+    # log sigmoid as min(f, 0) - log1p(exp(-|f|)) (the kernels' form):
+    # F.logsigmoid fails on CUDA tensors under two nested vmaps (a round
+    # of co-training vmaps over services, then clients)
+    logf = torch.minimum(f_raw, torch.zeros_like(f_raw)) - torch.log1p(
+        torch.exp(-f_raw.abs()))
     m_new = torch.maximum(logf + m, i_raw)
     i_sc = torch.exp(i_raw - m_new)
     f_sc = torch.exp(logf + m - m_new)

@@ -20,8 +20,10 @@ through the ``mlstm_chunk`` kernel (``kernels.ops.mlstm``); a decode step
 runs ``ssm.mlstm_step`` and ``ssm.slstm_step``, as the JAX model does.  The
 recurrent cache keeps the JAX layout (``m_C`` (n_super, n_m, B, H, Dh, Dh)
 float32, and so on) and is updated in place, layer by layer; its ``"len"``
-is a host int.  ``remat`` and the sharding constraints have no
-counterpart; ``loss`` waits for the training slice.
+is a host int.  ``loss`` differentiates through the kernel's backward
+(``ops.MLSTMChunk``) on the card and its plain version on the CPU; the
+sLSTM is PyTorch ops on both.  ``remat`` and the sharding constraints have
+no counterpart.
 """
 from __future__ import annotations
 
@@ -249,9 +251,10 @@ class XLSTMLM:
     # ---------------- public entry points ----------------
     def loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``forward``'s logits (no aux
-        loss), as the JAX model's.  It differentiates on the CPU, where
-        ``ops.mlstm`` runs the plain chunkwise ops; on the card the mLSTM
-        kernel has no backward yet and raises under grad."""
+        loss), as the JAX model's.  Differentiable on both devices (under
+        ``torch.func`` too): every mLSTM layer's ``ops.mlstm`` runs B7 and
+        its backward kernels on the card, their plain versions on the
+        CPU."""
         logits, _ = self.forward(params, batch["tokens"])
         return layers.softmax_cross_entropy(logits, batch["labels"],
                                             batch.get("loss_mask"))

@@ -13,15 +13,18 @@
   ops; ``vmap(grad(...))`` through ``ops.attention``, once and nested,
   equal to a loop over the batch; a dO with a stride-0 batch dim, and in
   bfloat16 a q that ``vmap`` folded into a stride-0 batch, reach the
-  backward's launcher dense.
+  backward's launcher dense; B6 refuses grad on the card, and grad
+  through ``ops.mlstm`` routed as on the card reaches B7's backward
+  launcher once, with a dense dy.
 * ``torch.func.grad(model.loss)`` against ``jax.grad(model.loss)`` on one
   parameter set (the JAX init carried over by ``interop``), for each family
   at smoke size, in float32.  Tolerance: per leaf, 2e-4 of the leaf's
   largest |grad| (the losses' own parity is 1e-4; a few layers of
   products and softmaxes sum in other orders).
-* One ``make_fl_round_step`` round of gemma3-1b, port against JAX, on the
-  same params, batches and weights: params within 1e-4 of each leaf's
-  largest |value| change, the loss within 1e-5 relative.
+* One ``make_fl_round_step`` round of gemma3-1b and of xlstm-1.3b, port
+  against JAX, on the same params, batches and weights: params within
+  1e-4 of each leaf's largest |value| change, the loss within 1e-5
+  relative.
 """
 import dataclasses
 
@@ -42,6 +45,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
                                                  flash_attention_plain,
                                                  flash_attention_plain_lse)
+from repro_torch.kernels.mlstm_chunk import (mlstm_chunk_bwd_plain,
+                                             mlstm_chunk_fwd_plain,
+                                             mlstm_chunk_plain)
 from repro_torch.models import registry
 
 ATTN_TOL = 1e-5
@@ -302,13 +308,12 @@ def test_second_derivative_through_attention_raises(route):
         second()
 
 
-@pytest.mark.parametrize("kernel",["decode_attention", "mlstm_chunk"])
+@pytest.mark.parametrize("kernel", ["decode_attention"])
 def test_kernels_without_backward_refuse_grad_on_the_card(kernel,
                                                           monkeypatch):
-    """B6 and B7 have no backward: routed as CUDA tensors (CPU tensors with
-    the device test patched), inputs that require grad raise a
-    RuntimeError naming ROADMAP before any launch; without grad the call
-    goes through."""
+    """B6 has no backward (decode is never differentiated): routed as CUDA
+    tensors (CPU tensors with the device test patched), inputs that
+    require grad raise a RuntimeError naming ROADMAP before any launch."""
     monkeypatch.setattr(ops, "_kernel_device", lambda name, x: True)
     monkeypatch.setattr(ops, "_check_rows_aligned", lambda *args: None)
     monkeypatch.setattr(ops, f"{kernel}_cuda",
@@ -319,17 +324,68 @@ def test_kernels_without_backward_refuse_grad_on_the_card(kernel,
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32))
 
-    if kernel == "decode_attention":
-        args = (t(2, 4, 32), t(2, 9, 2, 32), t(2, 9, 2, 32), 6)
-        call = ops.attention_decode
-    else:
-        args = (t(1, 2, 16, 64), t(1, 2, 16, 64), t(1, 2, 16, 64),
-                t(1, 2, 16), t(1, 2, 16))
-        call = ops.mlstm
+    args = (t(2, 4, 32), t(2, 9, 2, 32), t(2, 9, 2, 32), 6)
+    call = ops.attention_decode
     with pytest.raises(RuntimeError, match="ROADMAP"):
         call(args[0].requires_grad_(), *args[1:])
     with pytest.raises(RuntimeError, match="ROADMAP"):
         grad(lambda x: call(x, *args[1:])[0].sum())(args[0].detach())
+
+
+@pytest.mark.parametrize("route", ["autograd", "func_grad"])
+def test_grad_through_mlstm_reaches_the_bwd_kernel(route, monkeypatch):
+    """B7 differentiates through its backward kernels: routed as CUDA
+    tensors (the device test patched, the launchers pointed at the plain
+    versions), grad through ``ops.mlstm`` launches the forward (with its
+    chunk states and statistics saved) and the backward once each, the
+    backward's dy arrives dense though autograd hands a broadcast one, and
+    the gradients equal autograd of the plain version's."""
+    seen = []
+
+    def fwd_launcher(q, k, v, i_gate, f_gate, state=None, save=False):
+        assert save
+        y, final, (cs, ns, ms), stats = mlstm_chunk_fwd_plain(
+            q, k, v, i_gate, f_gate, state)
+        return ops._mlstm_y(q).copy_(y), final, (cs.to(q.dtype), ns, ms), \
+            stats
+
+    def bwd_launcher(*args):
+        dy = args[-1]
+        seen.append(dy.stride())
+        assert dy.is_contiguous() and not ops._broadcast(dy)
+        return mlstm_chunk_bwd_plain(*args)
+
+    monkeypatch.setattr(ops, "_kernel_device", lambda name, x: True)
+    monkeypatch.setattr(ops, "_check_rows_aligned", lambda *args: None)
+    monkeypatch.setattr(ops, "mlstm_chunk_cuda", fwd_launcher)
+    monkeypatch.setattr(ops, "mlstm_chunk_bwd_cuda", bwd_launcher)
+    rng = np.random.default_rng(8)
+    arrays = [rng.standard_normal(shape).astype(np.float32) for shape in (
+        (2, 2, 300, 64), (2, 2, 300, 64), (2, 2, 300, 64), (2, 2, 300),
+        (2, 2, 300))]
+    arrays[1] /= 8.0
+    arrays[4] += 2.0
+    w = torch.from_numpy(arrays[0][0])   # (H, S, Dh), expanded over B
+
+    def loss(*xs):
+        y, _ = ops.mlstm(*xs)
+        return (y.sum(0) * w).sum()
+
+    ops.reset_launches()
+    xs = [torch.from_numpy(a) for a in arrays]
+    if route == "autograd":
+        xs = [x.requires_grad_() for x in xs]
+        got = torch.autograd.grad(loss(*xs), xs)
+    else:
+        got = grad(loss, argnums=tuple(range(5)))(*xs)
+    assert len(seen) == 1
+    assert (ops.LAUNCHES["mlstm_chunk"], ops.LAUNCHES["mlstm_chunk_bwd"]) \
+        == (1, 1)
+    ps = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    y, _ = mlstm_chunk_plain(*ps)
+    want = torch.autograd.grad((y.sum(0) * w).sum(), ps)
+    for g, wnt in zip(got, want):
+        assert _rel(g.numpy(), wnt.numpy()) <= ATTN_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -421,9 +477,9 @@ def _carry_as_jax_order(j_tree, cfg):
     return [x.numpy() for _, x in _named(carried)]
 
 
-def test_one_fl_round_matches_jax():
-    j_cfg = j_configs.get_smoke_config("gemma3-1b")
-    cfg = configs.get_smoke_config("gemma3-1b")
+def _one_fl_round_matches_jax(arch: str):
+    j_cfg = j_configs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(arch)
     j_model, model = j_registry.build_model(j_cfg), registry.build_model(cfg)
     j_params = j_model.init(jax.random.key(4))
     params = _carry(j_params, cfg)
@@ -448,3 +504,13 @@ def test_one_fl_round_matches_jax():
     for d, w in zip(delta, j_delta):
         scale = max(float(np.max(np.abs(w))), 1e-12)
         assert float(np.max(np.abs(d.numpy() - w))) <= 1e-4 * scale
+
+
+def test_one_fl_round_matches_jax():
+    _one_fl_round_matches_jax("gemma3-1b")
+
+
+def test_one_fl_round_matches_jax_xlstm():
+    """The same round of the reduced xlstm-1.3b: vmap over clients of
+    grad through B7's autograd.Function (its plain bodies here)."""
+    _one_fl_round_matches_jax("xlstm-1.3b")
