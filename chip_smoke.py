@@ -63,8 +63,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    host's launch path is hidden; median of 21) with the profiler's mean
    as a cross-check (kernel_profiler_ms: an untimed call inside the
    window and FILLERS tiny kernels at both ends, records from
-   prof.events(); the fillers each end lost are tallied over every
-   window in the profiler_windows line), the wrapper's and the plain
+   prof.events(), after a 20 ms host pause that lets tracing start; the
+   fillers each end lost are tallied over every window in the
+   profiler_windows line, and a window that loses half of them at either
+   end fails the phase), the wrapper's and the plain
    version's time per call
    (CUDA events, median of 21 calls, host launch path included), and the
    bound (the larger of float32 operations over 67 TFLOP/s and bytes
@@ -316,7 +318,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       reference's geometry.  Then 4 gloo ranks on the same card, spawned
       from the phase (they load the built kernels): the same solves on
       2048 rows a rank and the same fleets, held to the same dense solves
-      and batches.  Outside the counted paths (sharded_times): ms a solve
+      and batches.  In the same ranks, slice 16 (sharded_moe) on a (data
+      2, model 2) mesh: (a) deepseek-v2's MoE layer at full width in bf16
+      (router 5120 x 160, routed 160 x 5120 x 1536 x 3, 2 shared experts),
+      drawn by every rank from one seed on the card, resharded
+      (distributed.elastic.reshard, fsdp off: 80 experts a rank) and
+      freed, each local block bitwise its slice; (b) the expert-parallel
+      forward (models.moe._apply_moe_ep through apply_moe) on it over 4 x
+      2048 bf16 tokens split over data, each data shard's output within
+      max |dev| / max |out| <= 2e-2 of the generic apply_moe at world 1
+      on that shard's 4096 tokens (the parent computes it, the card
+      alone); (c) tests/test_distributed.py's EP setting in float32 (E =
+      8, k = 2, capacity 8.0) on the whole values and on reshard's
+      DTensors with FSDP on, against the dense oracle (rtol 2e-4, atol
+      2e-5), gradients against the generic path's at world 1 within 1e-4
+      of the largest |grad|; (d) ms of an EP layer (median of 5, CUDA
+      events; gloo stages the card's tensors through the host), of the
+      generic layer at world 1 over all 8192 tokens, of the (4096, 5120)
+      all-reduce over model alone, and each rank's peak GB.  Outside the
+      counted paths (sharded_times): ms a solve
       by method and world, ms a trip of the collective alone, B2's kernel
       ms at each world's shard shape, B2 launches a solve per rank;
    per episode: rounds and durations equal (see compare_episodes for the
@@ -623,22 +643,30 @@ def device_ms(fn, reps: int = 21, warmup: int = 3) -> float:
 FILLERS = 1024  # tiny kernels at each end of a kernel_profiler_ms window
 # Per window, its names and the filler records the profiler did not keep
 # at its start and at its end: the edge loss the fillers take (see
-# _profiled_records).
+# _profiled_records).  A window that loses FILLERS_LOST_LIMIT or more at
+# either end fails the phase: the loss may reach the kernel's records.
 FILLERS_LOST: list[tuple[str, int, int]] = []
+FILLERS_LOST_LIMIT = FILLERS // 2
+# Host pause between entering the profiler and the first launch: tracing
+# starts asynchronously, and without it a window lost 263-600 of its first
+# fillers now and then (tests/torch_profiler_fillers.py).
+PROFILER_SETTLE_S = 0.02
 
 
 def _profiled_records(fn, reps: int, names) -> dict:
-    """One profiler window: FILLERS tiny kernels, an untimed call of ``fn``
-    and a synchronise, then ``reps`` calls and FILLERS more tiny kernels.
-    After earlier windows in a process, a window can lose the device
+    """One profiler window: a PROFILER_SETTLE_S pause, FILLERS tiny
+    kernels, an untimed call of ``fn`` and a synchronise, then ``reps``
+    calls and FILLERS more tiny kernels.  A window can lose the device
     records of its first launches; the fillers take that loss, and how
-    many of them each end lost goes to FILLERS_LOST.  Returns, per name,
-    the device events whose names contain it."""
+    many of them each end lost goes to FILLERS_LOST; FILLERS_LOST_LIMIT or
+    more at either end raises, naming the window.  Returns, per name, the
+    device events whose names contain it."""
     from torch.autograd import DeviceType
 
     pad = torch.zeros(16, device=DEVICE)
     activities = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        time.sleep(PROFILER_SETTLE_S)
         for _ in range(FILLERS):
             pad.add_(1.0)
         fn()
@@ -659,6 +687,11 @@ def _profiled_records(fn, reps: int, names) -> dict:
             kept += 1
         ends.append(FILLERS - kept)
     FILLERS_LOST.append((" ".join(names), *ends))
+    if max(ends) >= FILLERS_LOST_LIMIT:
+        raise AssertionError(
+            f"profiler window {' '.join(names)}: lost {ends[0]} of its "
+            f"{FILLERS} fillers at its start and {ends[1]} at its end "
+            f"(limit {FILLERS_LOST_LIMIT}): its kernel records are suspect")
     return {name: [e for e in device if name in e.name] for name in names}
 
 
@@ -2640,6 +2673,20 @@ SHARDED_COTRAIN = {"max_periods": 8}
 SHARDED_KERNELS = COTRAIN_KERNELS
 TOL["lam_sharded"] = (1e-3, 0.0)   # tests/test_market_clear.py:130-133
 RANK_SETUP = None   # a rehearsal's hook, called first in every spawned rank
+# Slice 16, in the same ranks: the model half of the distributed layer on
+# a (data 2, model 2) mesh.  deepseek-v2's MoE layer at full width in
+# bf16 (160 routed experts, top-6, 2 shared, capacity 1.0; fsdp off, so
+# a rank holds 80 experts) over B x S = 4 x 2048 tokens (>= 8 E), and
+# tests/test_distributed.py's EP setting in float32.
+EP_MESH = ((2, 2), ("data", "model"))
+EP = {"arch": "deepseek-v2-236b", "batch": 4, "seq": 2048, "reps": 3}
+EP_TOL = 2e-2         # max |EP - generic| / max |generic|, bf16
+EP_SMALL = dict(name="ep-small", family="moe", n_layers=1, d_model=32,
+                n_heads=2, n_kv_heads=2, head_dim=16, d_ff=0, vocab_size=64,
+                n_experts=8, n_experts_per_token=2, d_ff_expert=48,
+                capacity_factor=8.0, dtype="float32")
+EP_SMALL_TOL = (2e-4, 2e-5)   # rtol, atol against the dense oracle
+EP_GRAD_TOL = 1e-4            # of the largest |grad| of the generic path
 
 
 def sharded_solves(svc, lam_prev: float, mesh) -> dict:
@@ -2777,6 +2824,7 @@ def _sharded_rank(rank: int, world: int, run_dir: str) -> None:
                       "collective_trip_ms": collective_trip_ms(mesh),
                       "fleets": sharded_fleets()}
             result["seconds"] = time.perf_counter() - t0
+            result["moe"] = ep_rank_part(inputs["moe_refs"])
         finally:
             dist.destroy_process_group()
         result = {"ok": True, "result": result}
@@ -2784,6 +2832,249 @@ def _sharded_rank(rank: int, world: int, run_dir: str) -> None:
         result = {"ok": False, "error": traceback.format_exc()}
     with open(path / f"rank{rank}.pkl", "wb") as fh:
         pickle.dump(result, fh)
+
+
+def ep_layer():
+    """(config, deepseek-v2's MoE layer in bf16, the B x S x d bf16 tokens),
+    drawn on the card from seeds 0 and 1: the same on every rank and in
+    the parent."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get_config(EP["arch"])
+    layer = moe.init_moe(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                         device=DEVICE, dtype=torch.bfloat16)
+    x = torch.randn((EP["batch"], EP["seq"], cfg.d_model), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(1))
+    return cfg, layer, x.to(torch.bfloat16)
+
+
+def ep_references() -> dict:
+    """World 1, the card alone, no mesh: the generic apply_moe of the whole
+    layer on each data shard's tokens (the references of the ranks' EP
+    outputs: the same per-shard capacity, so the same kept slots), and its
+    ms over all B x S tokens (median of EP["reps"], CUDA events)."""
+    from repro_torch.models import moe
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, layer, x = ep_layer()
+    shards = EP_MESH[0][0]
+    per = EP["batch"] // shards
+    with torch.no_grad():
+        refs = [moe.apply_moe(layer, x[i * per:(i + 1) * per], cfg)[0].cpu()
+                for i in range(shards)]
+        # the shards' calls above warmed the path
+        generic_ms = event_ms(lambda: moe.apply_moe(layer, x, cfg),
+                              reps=EP["reps"], warmup=0)
+    out = {"refs": refs, "generic_ms": generic_ms,
+           "layer_gb": _nbytes(layer) / 1e9,
+           "generic_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del layer, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_grads(p, x, cfg) -> tuple:
+    """apply_moe's output and the gradients of sum(out ** 2) with respect
+    to every parameter leaf (path -> grad), under the registered mesh."""
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves_with_names
+
+    leaves = dict(leaves_with_names(p))
+    for leaf in leaves.values():
+        leaf.requires_grad_()
+    out, _ = moe.apply_moe(p, x, cfg)
+    (out ** 2).sum().backward()
+    return out.detach(), {k: v.grad for k, v in leaves.items()}
+
+
+def ep_small(mesh) -> dict:
+    """(c) EP_SMALL in float32 on the card: the EP path on the whole
+    values and on reshard's DTensors with FSDP on (its gathers and, in the
+    backward, reduce-scatters) against the dense oracle (EP_SMALL_TOL), and
+    its gradients against the generic path's at world 1 (no mesh), each
+    leaf within EP_GRAD_TOL of its largest |grad| (a DTensor's local block
+    against the same block).  Then api.constrain on the card: the whole
+    tokens pinned to ("batch", None, None) hold this rank's data block,
+    and that block pinned to no axis the whole tokens, bitwise."""
+    from repro_torch.distributed import api, elastic, specs
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.tree import tree_map
+
+    cfg = ModelConfig(**EP_SMALL)
+    gen = torch.Generator().manual_seed(0)
+    base = moe.init_moe(gen, cfg, device=DEVICE)
+    x = torch.randn(8, 16, cfg.d_model, generator=gen).to(DEVICE)
+    dense = moe.apply_moe_dense_ref(base, x, cfg)
+    _, want = _ep_grads(tree_map(torch.clone, base), x, cfg)
+    rtol, atol = EP_SMALL_TOL
+    rows = {}
+    api.set_mesh(mesh)
+    try:
+        for run in ("whole", "fsdp"):
+            if run == "whole":
+                p, xr = tree_map(torch.clone, base), x
+            else:
+                p = elastic.reshard(cfg, base, mesh, fsdp=True)
+                xr = specs.place(x, ("data", None, None), mesh)
+            out, grads = _ep_grads(p, xr, cfg)
+            ref = dense
+            if run == "fsdp":       # this rank's data shard of the batch
+                per = x.shape[0] // mesh.shape["data"]
+                d = mesh.coordinate("data")
+                out, ref = out.to_local(), dense[d * per:(d + 1) * per]
+            err = (out - ref).abs()
+            if not bool(torch.all(err <= atol + rtol * ref.abs())):
+                raise AssertionError(f"ep small {run}: max |out - dense| "
+                                     f"{float(err.max())}")
+            grad_err = {}
+            for path, g in grads.items():
+                w = want[path]
+                if run == "fsdp":
+                    spec = specs.spec_of(g, mesh)
+                    g, w = g.to_local(), w[specs.local_slices(
+                        spec, tuple(w.shape), mesh)]
+                rel = float((g - w).abs().max() / want[path].abs().max())
+                if not rel <= EP_GRAD_TOL:
+                    raise AssertionError(f"ep small {run} {path}: gradient "
+                                         f"{rel} of the largest |grad|")
+                grad_err[path] = rel
+            rows[run] = {"max_abs_err": float(err.max()),
+                         "grad_rel_err": max(grad_err.values())}
+        split = api.constrain(specs.place(x, (), mesh), "batch", None, None)
+        whole = api.constrain(split, None, None, None)
+        if not (torch.equal(split.to_local(), xr.to_local())
+                and torch.equal(whole.to_local(), x)):
+            raise AssertionError("constrain: a block is not its slice")
+        rows["constrain_bitwise"] = True
+    finally:
+        api.set_mesh(None)
+    return rows
+
+
+def ep_rank_part(refs: list) -> dict:
+    """Slice 16's part of a sharded rank, on an EP_MESH mesh.  (a) Every
+    rank draws deepseek-v2's MoE layer and the tokens (12.7 GB at the
+    peak of a rank's draw, 51 GB for the four at once), reshards the layer
+    (fsdp off) and places the tokens (split over data), checks every
+    local block bitwise against its slice of the drawn tensors and frees
+    them.  (b) The EP forward on the resharded layer (a DTensor
+    out, this rank's data shard): max |dev| over max |out| of the generic
+    layer's reference for that shard, EP_TOL.  (c) ep_small.  (d) ms of
+    an EP layer and of the (T_loc, d) all-reduce over model alone
+    (medians of EP["reps"], CUDA events), and the rank's peak GB."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import api, collectives, elastic, specs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves_with_names
+
+    t0 = time.perf_counter()
+    # a DTensor keeps its block on its mesh's device type
+    mesh = mesh_lib.make_mesh(*EP_MESH, device_type=torch.device(DEVICE).type)
+    marks = {"mesh": time.perf_counter()}
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"coords": [mesh.coordinate(ax) for ax in mesh.axis_names]}
+    cfg, full, x_full = ep_layer()
+    _sync(DEVICE)
+    marks["draw"] = time.perf_counter()
+    placed = elastic.reshard(cfg, full, mesh, fsdp=False)
+    x = specs.place(x_full, ("data", None, None), mesh)
+    local, by_path = {}, {}
+    whole = dict(leaves_with_names(full))
+    for path, leaf in [*leaves_with_names(placed), ("x", x)]:
+        src = x_full if path == "x" else whole[path]
+        spec = specs.spec_of(leaf, mesh)
+        block = leaf.to_local()
+        if not torch.equal(block, src[specs.local_slices(
+                spec, tuple(src.shape), mesh)]):
+            raise AssertionError(f"reshard {path}: local block is not its "
+                                 f"slice")
+        local[path], by_path[path] = list(block.shape), spec
+    out["reshard"] = {
+        "bitwise": True, "local_shapes": local,
+        "specs": {k: [v if not isinstance(v, tuple) else list(v)
+                      for v in spec] for k, spec in by_path.items()},
+        "local_gb": _nbytes([leaf.to_local() for _, leaf in
+                             leaves_with_names(placed)]) / 1e9}
+    del full, x_full, whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    marks["reshard"] = time.perf_counter()
+    experts = placed["routed"]["w_gate"].to_local().shape[0]
+    if experts != cfg.n_experts // mesh.shape["model"]:
+        raise AssertionError(f"a rank holds {experts} experts")
+
+    api.set_mesh(mesh)
+    try:
+        with torch.no_grad():
+            got, aux = moe.apply_moe(placed, x, cfg)
+            got = got.to_local()
+            ref = refs[mesh.coordinate("data")].to(DEVICE)
+            scale = float(ref.abs().max())
+            dev = float((got.float() - ref.float()).abs().max()) / scale
+            if not (bool(torch.isfinite(got).all()) and dev <= EP_TOL):
+                raise AssertionError(f"EP forward: max |dev| / max |out| "
+                                     f"{dev}, limit {EP_TOL}")
+            out["forward"] = {"rel_err": dev, "max_abs_out": scale,
+                              "aux": float(aux.to_local()),
+                              "shape": list(got.shape)}
+            # the forward above warmed the layer and its all-reduce
+            out["ep_ms"] = event_ms(lambda: moe.apply_moe(placed, x, cfg),
+                                    reps=EP["reps"], warmup=0)
+            flat = got.reshape(-1, got.shape[-1])
+            out["all_reduce_ms"] = event_ms(
+                lambda: collectives.sum_over(flat, mesh, ("model",)),
+                reps=EP["reps"], warmup=0)
+    finally:
+        api.set_mesh(None)
+    del placed, x
+    torch.cuda.empty_cache()
+    marks["forward"] = time.perf_counter()
+    out["small"] = ep_small(mesh)
+    marks["small"] = time.perf_counter()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t0
+    ends = [t0, *marks.values()]
+    out["part_seconds"] = {k: ends[i + 1] - ends[i]
+                           for i, k in enumerate(marks)}
+    return out
+
+
+def check_ep_ranks(ranks: list, refs: dict) -> dict:
+    """The ranks' slice-16 results: (a)-(c) were checked in the ranks
+    (which raise); here every (data, model) coordinate once, the model
+    ranks of a data shard alike in their EP output's deviation, and the
+    line's figures."""
+    coords = sorted(tuple(r["moe"]["coords"]) for r in ranks)
+    want = [(d, m) for d in range(EP_MESH[0][0])
+            for m in range(EP_MESH[0][1])]
+    if coords != want:
+        raise AssertionError(f"EP ranks at {coords}, expected {want}")
+    parts = [r["moe"] for r in ranks]
+    return {
+        "mesh": dict(zip(EP_MESH[1], EP_MESH[0])), "arch": EP["arch"],
+        "tokens": [EP["batch"], EP["seq"]], "layer_gb": refs["layer_gb"],
+        "reshard": {"bitwise": all(p["reshard"]["bitwise"] for p in parts),
+                    "specs": parts[0]["reshard"]["specs"],
+                    "rank0_shapes": parts[0]["reshard"]["local_shapes"],
+                    "local_gb": [p["reshard"]["local_gb"] for p in parts]},
+        "forward": {"limit": EP_TOL,
+                    "rel_err": [p["forward"]["rel_err"] for p in parts],
+                    "aux": [p["forward"]["aux"] for p in parts]},
+        "small": [p["small"] for p in parts],
+        "ep_ms_rank0": parts[0]["ep_ms"],
+        "ep_ms": [p["ep_ms"] for p in parts],
+        "generic_world1_ms": refs["generic_ms"],
+        "generic_world1_peak_gb": refs["generic_peak_gb"],
+        "all_reduce_ms": [p["all_reduce_ms"] for p in parts],
+        "peak_gb": [p["peak_gb"] for p in parts],
+        "seconds": [p["seconds"] for p in parts],
+        "part_seconds": [p["part_seconds"] for p in parts],
+        "backend": "gloo"}
 
 
 def spawn_ranks(world: int, inputs: dict, timeout: float = 300) -> list:
@@ -2926,10 +3217,12 @@ def sharded_phase() -> dict:
             dist.destroy_process_group()
 
     t0 = time.perf_counter()
+    moe_refs = ep_references()
     ranks = spawn_ranks(SHARDED_RANKS, {
         "device": DEVICE, "setup": RANK_SETUP, "lam_prev": lam_prev,
         "market": tuple(x.cpu().numpy() for x in (svc.alpha, svc.t_comp,
-                                                  svc.mask))})
+                                                  svc.mask)),
+        "moe_refs": moe_refs["refs"]})
     rows = []
     for rank, res in enumerate(ranks):
         label = f"sharded {SHARDED_RANKS} ranks/rank {rank}"
@@ -2948,6 +3241,7 @@ def sharded_phase() -> dict:
                                          f"{key} {k} differs between ranks")
     out[f"world{SHARDED_RANKS}"] = {"backend": "gloo", "ranks": rows,
                                     "seconds": time.perf_counter() - t0}
+    emit({"phase": "sharded_moe", **check_ep_ranks(ranks, moe_refs)})
     out["batch_seconds"] = {k: v[1] for k, v in batches.items()}
     out["seconds"] = time.perf_counter() - t_start
     emit({"phase": "sharded", **out})
@@ -4945,7 +5239,9 @@ def main() -> int:
                             zip(*np.unique(lost[:, 0], return_counts=True))},
           "lost_at_end": {int(k): int(v) for k, v in
                           zip(*np.unique(lost[:, 1], return_counts=True))},
-          "most_lost": max(FILLERS_LOST, key=lambda w: w[1], default=None)})
+          "limit": FILLERS_LOST_LIMIT,
+          "most_lost": max(FILLERS_LOST, key=lambda w: max(w[1:]),
+                           default=None)})
     marks = list(clock.items())
     emit({"phase": "seconds", **{name: t - marks[i][1]
                                  for i, (name, t) in enumerate(marks[1:])}})

@@ -1,5 +1,15 @@
-"""Distribution layer: collectives over the named axes of a rank mesh
-(hierarchical and int8-compressed), elastic re-meshing, fault tolerance.
-The per-architecture sharding rules (``sharding``) and the mesh context
-(``api``) are ROADMAP Queue A item 12b, not ported yet."""
-from repro_torch.distributed import collectives, elastic, fault  # noqa: F401
+"""Distribution layer: per-architecture sharding rules (DP/FSDP/TP/EP/SP)
+and the mesh context models constrain against, collectives over the named
+axes of a rank mesh (hierarchical and int8-compressed), fault tolerance,
+elastic re-meshing and resharding."""
+from repro_torch.distributed.sharding import (  # noqa: F401
+    batch_shardings,
+    cache_shardings,
+    param_shardings,
+)
+from repro_torch.distributed import (  # noqa: F401
+    api,
+    collectives,
+    elastic,
+    fault,
+)

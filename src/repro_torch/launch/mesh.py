@@ -73,15 +73,21 @@ class Mesh:
 
 
 def _device_type() -> str:
-    """The device type a ``DeviceMesh`` names: the card under ``nccl``;
-    otherwise ``cpu`` (gloo groups, which also carry the card's tensors)."""
+    """The device type a ``DeviceMesh`` names by default: the card under
+    ``nccl``; otherwise ``cpu`` (gloo groups, which also carry the card's
+    tensors in plain collectives)."""
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_mesh(axis_sizes, axis_names) -> Mesh:
+def make_mesh(axis_sizes, axis_names, *, device_type: str | None = None
+              ) -> Mesh:
     """The one mesh-construction path: ``axis_sizes`` over ``axis_names``,
     laying ranks out row-major (rank = the last axis's index fastest).
-    Raises ``ValueError`` unless the sizes multiply to the world size."""
+    Raises ``ValueError`` unless the sizes multiply to the world size.
+    ``device_type`` is the ``DeviceMesh``'s (default ``_device_type()``):
+    a ``DTensor`` over it keeps its local tensor on that device
+    (``DTensor.from_local`` moves it there), so gloo ranks that place the
+    card's tensors pass ``"cuda"``."""
     sizes = tuple(int(s) for s in axis_sizes)
     names = tuple(axis_names)
     if len(sizes) != len(names):
@@ -97,8 +103,8 @@ def make_mesh(axis_sizes, axis_names) -> Mesh:
         return Mesh(names, sizes)
     from torch.distributed.device_mesh import init_device_mesh
 
-    return Mesh(names, sizes, init_device_mesh(_device_type(), sizes,
-                                               mesh_dim_names=names))
+    return Mesh(names, sizes, init_device_mesh(
+        device_type or _device_type(), sizes, mesh_dim_names=names))
 
 
 def flat_mesh(n_ranks: int | None = None, axis_name: str = "data") -> Mesh:

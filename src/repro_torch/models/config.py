@@ -82,7 +82,8 @@ class ModelConfig:
     kv_cache_dtype: str = "compute"   # "compute" | "int8" (per-token/head scales)
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
-    remat: bool = True                # no counterpart: the port has no backward yet
+    # no counterpart: torch.utils.checkpoint does not compose with torch.func
+    remat: bool = True
     use_pallas: bool = False          # read nowhere, as in the JAX package
 
     @property

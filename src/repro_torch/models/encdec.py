@@ -22,6 +22,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import api as dist_api
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -200,7 +201,9 @@ class Seq2SeqLM:
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = layers.rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        return x @ params["embed"].to(x.dtype).T
+        x = dist_api.constrain(x, "batch", None, None)
+        return dist_api.constrain(x @ params["embed"].to(x.dtype).T,
+                                  "batch", None, "vocab")
 
     # ---------------- public entry points ----------------
     def loss(self, params: Params, batch: dict) -> torch.Tensor:

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import api as dist_api
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -121,10 +122,14 @@ def apply_mla(p: Params, x: torch.Tensor, cfg: ModelConfig,
         w_uk, w_uv = w_kv[..., :qk_nope], w_kv[..., qk_nope:]
         q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)   # (B,s,H,R)
-        c_kv_att = c_kv_all.float()
+        # the float32 caches pinned to (batch over data, replicated): the
+        # layout the JAX model pins them to
+        c_kv_att = dist_api.constrain(c_kv_all.float(), "batch", None, None)
+        k_rope_att = dist_api.constrain(k_rope_all.float(), "batch", None,
+                                        None)
         logits = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_kv_att)
                   + torch.einsum("bshn,btn->bhst", q_rope.float(),
-                                 k_rope_all.float())) * scale
+                                 k_rope_att)) * scale
         mask = layers.make_attention_mask(
             s, c_kv_all.shape[1], q_offset=q_offset, causal=True,
             kv_valid_len=kv_valid, device=x.device)

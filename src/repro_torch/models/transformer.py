@@ -35,6 +35,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import api as dist_api
 from repro_torch.kernels import ops
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -383,11 +384,14 @@ class CausalLM:
         x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
         if logits_mode == "last":
             x = x[:, -1:]
+        x = dist_api.constrain(x, "batch", None, None)
         table = params.get("unembed")
         if table is None:
             logits = x @ params["embed"].to(dt).T
         else:
             logits = x @ table.to(dt)
+        # the canonical (batch over data, vocab over model) logits layout
+        logits = dist_api.constrain(logits, "batch", None, "vocab")
         new_cache = None
         if cache is not None:
             new_cache = {**cache, "len": cache_len + s}

@@ -22,8 +22,8 @@ recurrent cache keeps the JAX layout (``m_C`` (n_super, n_m, B, H, Dh, Dh)
 float32, and so on) and is updated in place, layer by layer; its ``"len"``
 is a host int.  ``loss`` differentiates through the kernel's backward
 (``ops.MLSTMChunk``) on the card and its plain version on the CPU; the
-sLSTM is PyTorch ops on both.  ``remat`` and the sharding constraints have
-no counterpart.
+sLSTM is PyTorch ops on both.  ``remat`` has no counterpart; the logits
+are pinned with ``distributed.api.constrain``, as in the JAX model.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import api as dist_api
 from repro_torch.models import layers, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _generator
@@ -238,11 +239,13 @@ class XLSTMLM:
         x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
         if logits_mode == "last":
             x = x[:, -1:]
+        x = dist_api.constrain(x, "batch", None, None)
         table = params.get("unembed")
         if table is None:
             logits = x @ params["embed"].to(dt).T
         else:
             logits = x @ table.to(dt)
+        logits = dist_api.constrain(logits, "batch", None, "vocab")
         new_cache = None
         if cache is not None:
             new_cache = {**cache, "len": int(cache["len"]) + tokens.shape[1]}

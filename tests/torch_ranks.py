@@ -25,6 +25,7 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -105,7 +106,92 @@ def distributed_job(inputs: dict) -> dict:
     return out
 
 
-JOBS = {"disba_sharded": disba_sharded_job, "distributed": distributed_job}
+def _named(tree) -> dict:
+    from repro_torch.tree import leaves_with_names
+
+    return dict(leaves_with_names(tree))
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (differentiably), a plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _numpy(x) -> np.ndarray:
+    return _whole(x).detach().numpy()
+
+
+def ep_moe_job(inputs: dict) -> dict:
+    """The expert-parallel MoE per case of ``inputs["cases"]`` (name ->
+    {"mesh": (sizes, names), "cfg": ModelConfig fields, "p": the layer's
+    parameters as numpy, "x"}): ``moe.apply_moe`` (which dispatches to
+    ``_apply_moe_ep``) on the whole values held by every rank, then on
+    ``elastic.reshard``'s DTensors and x split over the data axes, with
+    FSDP off and on.  Each run's out, aux and the gradients of
+    sum(out ** 2) + AUX_WEIGHT aux, each resharded leaf's local block and
+    this rank's mesh coordinates; and ``api.constrain`` of one DTensor
+    (``inputs["constrain"]``, replicated on the first case's mesh) to
+    ("batch", None, "vocab") and to ("batch", "vocab", None), and of a
+    plain tensor."""
+    from repro_torch.distributed import api, elastic, specs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.tree import tree_map
+
+    def run(p, x, cfg):
+        leaves = _named(p)
+        for leaf in leaves.values():
+            leaf.requires_grad_()
+        x.requires_grad_()
+        o, aux = moe.apply_moe(p, x, cfg)
+        ((_whole(o) ** 2).sum()
+         + inputs["aux_weight"] * _whole(aux)).backward()
+        return {"type": type(o).__name__, "out": _numpy(o),
+                "aux": float(_numpy(aux)), "x_grad": _numpy(x.grad),
+                "grads": {k: _numpy(v.grad) for k, v in leaves.items()}}
+
+    out = {}
+    for name, case in inputs["cases"].items():
+        mesh = mesh_lib.make_mesh(*case["mesh"])
+        data = tuple(ax for ax in mesh.axis_names if ax != "model")
+        data = data if len(data) > 1 else data[0]
+        cfg = ModelConfig(**case["cfg"])
+        full = tree_map(torch.as_tensor, case["p"])
+        x = torch.as_tensor(case["x"])
+        api.set_mesh(mesh)
+        try:
+            res = {"coords": tuple(mesh.coordinate(ax)
+                                   for ax in mesh.axis_names),
+                   "plain": run(tree_map(torch.clone, full), x.clone(), cfg)}
+            for fsdp in (False, True):
+                placed = elastic.reshard(cfg, full, mesh, fsdp=fsdp)
+                local = {k: v.to_local().numpy()
+                         for k, v in _named(placed).items()}
+                xd = specs.place(x, (data, None, None), mesh)
+                res[f"fsdp={fsdp}"] = {**run(placed, xd, cfg),
+                                       "local": local}
+            if not out:
+                t = torch.as_tensor(inputs["constrain"])
+                whole = specs.place(t, (), mesh)
+                out["constrain"] = {
+                    "coords": res["coords"],
+                    "vocab_last": api.constrain(
+                        whole, "batch", None, "vocab").to_local().numpy(),
+                    "vocab_middle": api.constrain(
+                        whole, "batch", "vocab", None).to_local().numpy(),
+                    "plain_unchanged": api.constrain(
+                        t, "batch", None, "vocab") is t}
+        finally:
+            api.set_mesh(None)
+        out[name] = res
+    return out
+
+
+JOBS = {"disba_sharded": disba_sharded_job, "distributed": distributed_job,
+        "ep_moe": ep_moe_job}
 
 
 # ---------------------------------------------------------------------------
